@@ -30,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIB_NAME = "libdecompress_tpu_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry points: name -> argument types (pointers, ints, the stream last)
@@ -39,6 +39,8 @@ _SIGNATURES = {
     "dtt_histograms": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P),
     "dtt_build_slots": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                         _I, _I, _P),
+    "dtt_litbits": (_P, _I, _P, _P, _I, _I, _P),
+    "dtt_gain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -65,21 +67,41 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _failed(cmd: list[str], rc: int, out: str) -> RuntimeError:
+    return RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+
+
 def build() -> pathlib.Path:
-    """Compile the kernels unless this exact build exists; its path."""
+    """Compile the kernels unless this exact build exists; its path.
+    One ``nvcc`` per source, all started together, then one link."""
     out_dir = BUILD_DIR / _source_hash()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+    nvcc, tag = _nvcc(), os.getpid()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for cmd, _, proc in jobs:  # wait for every compile, failed or not
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            errors.append(_failed(cmd, proc.returncode, out))
+    if errors:
+        raise errors[0]
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+           *(str(obj) for _, obj, _ in jobs)]
     res = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                           f"{res.stdout}{res.stderr}")
+        raise _failed(cmd, res.returncode, res.stdout + res.stderr)
     os.replace(tmp, lib_path)
+    for _, obj, _ in jobs:
+        obj.unlink()
     return lib_path
 
 

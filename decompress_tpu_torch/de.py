@@ -1,10 +1,11 @@
 """Raw DEFLATE (RFC 1951) one-shot compression on the card (torch).
 
-Counterpart of ``decompress_tpu/de.py: deflate`` for levels 0-4 and the
+Counterpart of ``decompress_tpu/de.py: deflate`` for levels 0-12 and the
 ``rle``/``huffman_only``/``fixed`` strategies.  The pipeline is the
 reference's, batch by batch in order: device LZ77 analysis of up to
 ``MAX_DEVICE_BATCH`` segments of ``SEGMENT_SIZE`` bytes, each with its
-32 KiB history (``ops/lz77.py``); host block planning and Huffman tables
+32 KiB history, with the cost-aware round B at levels 5-12
+(``ops/lz77.py``, ``ops/cost_cu.py``); host block planning and Huffman tables
 (the reference's own ``plan_blocks``); device slot build and bit pack
 (``ops/pack_cu.py``, ``ops/bitpack.py``); host assembly.  The output is
 byte-identical to the reference's.
@@ -55,9 +56,9 @@ def deflate(data, level: int | None = None, *, segment_size: int | None = None,
 
     ``dynamic=False`` or ``strategy="fixed"`` forces fixed-Huffman
     blocks; ``window_bits`` (8..15) restricts match distances;
-    ``dictionary`` seeds the match window; levels 5-12 raise
-    NotImplementedError (round B is not ported).  The reference's
-    ``config=`` object argument is not ported."""
+    ``dictionary`` seeds the match window; the default level is 6.
+    Unknown levels raise ValueError.  The reference's ``config=`` object
+    argument is not ported."""
     dev = _resolve_device(device)
     level = 6 if level is None else level
     dynamic = True if dynamic is None else dynamic
@@ -72,7 +73,7 @@ def deflate(data, level: int | None = None, *, segment_size: int | None = None,
         else:
             raise ValueError(f"unknown strategy {strategy!r}")
     if level != 0:
-        lz77.level_config(level)  # unported or unknown levels raise here
+        lz77.level_config(level)  # unknown levels raise here
     arr = _np_u8(data)
     n = arr.size
     w = bitstream.BitWriter()

@@ -1,21 +1,28 @@
-"""Device LZ77 match finder + parallel greedy/lazy parse (torch).
+"""Device LZ77 match finder + parallel greedy/lazy and cost-aware parse
+(torch).
 
-Counterpart of ``decompress_tpu/ops/lz77.py`` for the greedy-only levels
-1-4 and the ``rle``/``huffman_only`` strategy slots (round A only).  The
-algorithm is the reference's, array for array, batched over segments
-instead of vmapped:
+Counterpart of ``decompress_tpu/ops/lz77.py`` for every level (1-12) and
+the ``rle``/``huffman_only`` strategy slots.  The algorithm is the
+reference's, array for array, batched over segments instead of vmapped:
 
 * hash4 of every position, one sort of a packed ``(hash, pos)`` key: a
   position's K most recent same-hash predecessors are its K previous
-  sorted rows, probed in rank space with the short grade ladder (exact
-  4- and 8-byte words, 16- and 64-byte fingerprints);
-* the winner's length resolved by the span-walk descent over the
-  fingerprint pyramid (spans 128..4) plus the exact 0..3-byte refine, or
+  sorted rows, probed in rank space with the grade ladder (the short one
+  of levels 1-4: exact 4- and 8-byte words, 16- and 64-byte
+  fingerprints; the full 13-rung one of levels 5-12, over 16-bit hash
+  pairs), optionally tracking the runner-up (``top2``);
+* the winner's length resolved from the ladder floor: by the span-walk
+  descent over the fingerprint pyramid plus the exact 0..3-byte refine
+  (short ladder), by one exact 64-byte record compare (full ladder), or
   by the exact linear extension (``force_exact``);
-* exact small-distance (d <= 4) run candidates merged in;
+* exact small-distance (d <= 4) run candidates merged in, then the
+  3-byte-hash pass for pure length-3 matches (``hash3``);
 * greedy/lazy take-defer, the mark-path parse (``parse_cu``), the exact
   verification pass, the histograms (``hist_cu``), and the
-  trim-and-reparse repair that makes the output byte-exact.
+  trim-and-reparse repair that makes the output byte-exact;
+* for the two-round levels (5-12), round B: host bit-cost tables and
+  hot-stride mining from round A's histograms, then the cost-aware
+  re-parse (literal bits and match gains in ``cost_cu``).
 
 uint32 arithmetic (hashes, fingerprints) runs in int64 masked to 32
 bits: torch has no wrapping uint32 multiply, and int32 shifts are
@@ -30,9 +37,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from decompress_tpu.core import tables
+from decompress_tpu.core import huffman, tables
 
-from . import hist_cu, parse_cu
+from . import cost_cu, hist_cu, parse_cu
 
 # Copies of the reference's byte-deciding constants (ops/lz77.py cannot be
 # imported without JAX); tests/test_torch_lz77.py holds them equal.
@@ -47,10 +54,13 @@ HASH_MUL = 2654435761
 PREMIX_MUL = 2246822519
 #: rotate-left amount of the fingerprint combine
 MIX_ROT = 13
+#: exact-distance histogram width for hot-stride mining (round B)
+HOT_DIST_BINS = 4096
+#: strided-run candidates mined per segment in round B
+HOT_DISTS = 8
 
 _M32 = 0xFFFFFFFF
 _NEG_INF = -(1 << 30)
-_NOT_PORTED = "round B not ported yet: ROADMAP"
 
 
 @dataclass(frozen=True)
@@ -68,13 +78,21 @@ class LevelConfig:
     hash3: bool = False  # 3-byte-hash pass for pure len-3 matches
 
 
-#: The ported rows of the reference's level table: the greedy-only levels
-#: and the strategy slots (100 = rle, 101 = huffman-only).
+#: The reference's level table: levels 1-12 and the strategy slots
+#: (100 = rle, 101 = huffman-only).
 LEVELS: dict[int, LevelConfig] = {
     1: LevelConfig(4, False, full_ladder=False),
     2: LevelConfig(6, False, full_ladder=False),
     3: LevelConfig(8, False, full_ladder=False),
     4: LevelConfig(8, True, full_ladder=False),
+    5: LevelConfig(12, True, two_round=True),
+    6: LevelConfig(16, True, two_round=True, hash3=True),
+    7: LevelConfig(24, True, two_round=True, top2=True, hash3=True),
+    8: LevelConfig(32, True, two_round=True, top2=True, hash3=True),
+    9: LevelConfig(64, True, two_round=True, top2=True, hash3=True),
+    10: LevelConfig(64, True, two_round=True, top2=True, hash3=True),
+    11: LevelConfig(96, True, two_round=True, top2=True, hash3=True),
+    12: LevelConfig(128, True, two_round=True, top2=True, hash3=True),
     100: LevelConfig(0, False, full_ladder=False),
     101: LevelConfig(0, False, full_ladder=False, runs=False),
 }
@@ -84,11 +102,9 @@ _TRIM_RETRIES = 3
 
 
 def level_config(level: int) -> LevelConfig:
-    """The ported level's config; levels 5-12 need round B."""
+    """The level's config; unknown levels raise ValueError."""
     if level in LEVELS:
         return LEVELS[level]
-    if 5 <= level <= 12:
-        raise NotImplementedError(_NOT_PORTED)
     raise ValueError(f"unknown level {level}")
 
 
@@ -145,6 +161,63 @@ def _fingerprints(w: torch.Tensor) -> dict[int, torch.Tensor]:
     return fp
 
 
+def _hash15(w: torch.Tensor) -> torch.Tensor:
+    """The HASH_BITS-bit bucket hash of a (masked) word."""
+    return _mul32(w, HASH_MUL) >> (32 - HASH_BITS)
+
+
+def _h16(x: torch.Tensor) -> torch.Tensor:
+    """16-bit hash of a uint32 value (the full ladder's probe halves)."""
+    return _mul32(x, HASH_MUL) >> 16
+
+
+def _pack2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two 16-bit hashes in one uint32 value: h16(a) high, h16(b) low."""
+    return (_h16(a) << 16) | _h16(b)
+
+
+def _probe_fields(w, fp, full_ladder: bool) -> tuple[torch.Tensor, ...]:
+    """The ladder's probe fields at every position.  Short ladder: the
+    exact words at +0 and +4, the 16- and 64-byte fingerprints.  Full
+    ladder: the exact words and the 16-byte fingerprint, then six packed
+    16-bit hash pairs (offset fingerprints between the power-of-two
+    spans; the hi half of the last covers bytes [192, 224))."""
+    def ahead(a, k):
+        return torch.roll(a, -k, 1)
+
+    if not full_ladder:
+        return w, ahead(w, 4), fp[16], fp[64]
+    return (w, ahead(w, 4), fp[16],
+            _pack2(ahead(w, 6), ahead(fp[8], 4)),
+            _pack2(ahead(w, 10), ahead(w, 16)),
+            _pack2(ahead(fp[16], 8), fp[32]),
+            _pack2(ahead(fp[16], 32), fp[64]),
+            _pack2(ahead(fp[32], 64), fp[128]),
+            _pack2(ahead(fp[32], 192), ahead(fp[64], 128)))
+
+
+def _ladder_rungs(xs, full_ladder: bool):
+    """(hit, weight) per rung above the 8-byte words, in chain order,
+    from the xors of the probe fields after the two exact words: each
+    rung counts only if every rung before it hit."""
+    if not full_ladder:
+        x16, x64 = xs
+        return ((x16 == 0, 8), (x64 == 0, 48))
+    x16, p1, p2, p3, p4, p5, p6 = xs
+
+    def hi(x):
+        return (x & 0xFFFF0000) == 0
+
+    def lo(x):
+        return (x & 0xFFFF) == 0
+
+    # floors 10, 12, 14, 16, 20, 24, 32, 48, 64, 96, 128, 192, 224
+    return ((hi(p1), 2), (lo(p1), 2), (hi(p2), 2), (x16 == 0, 2),
+            (lo(p2), 4), (hi(p3), 4), (lo(p3), 8), (hi(p4), 16),
+            (lo(p4), 16), (hi(p5), 32), (lo(p5), 32), (lo(p6), 64),
+            (hi(p6), 32))
+
+
 def _suffix_min(x: torch.Tensor) -> torch.Tensor:
     """Reverse cumulative minimum along the last axis."""
     return torch.flip(torch.cummin(torch.flip(x, (-1,)), -1).values, (-1,))
@@ -163,6 +236,38 @@ def _shift_right(a: torch.Tensor, k: int, fill: int) -> torch.Tensor:
                      dim=1)
 
 
+def _sorted_buckets(h: torch.Tensor, t: int):
+    """(sp, sh): positions and hashes in ``(hash, pos)`` order.  One int64
+    key (hash | pos) gives the reference's order on both of its sort
+    branches, for every segment length."""
+    pos_bits = max(1, (t - 1).bit_length())
+    pos = torch.arange(t, device=h.device)
+    skey = torch.sort((h << pos_bits) | pos, dim=1).values
+    return skey & ((1 << pos_bits) - 1), skey >> pos_bits
+
+
+def _pack_winner(score, cand, p4, sp):
+    """A probe winner as one int64 word: cand << 12 | floor << 3 |
+    tier << 1 | has.  The grade is recovered from the score
+    ((grade << 17) - dist); tier 1 = an exactly-3-byte candidate."""
+    has = score > _NEG_INF
+    grade = torch.clamp((score + (sp - cand)) >> 17, 0, MAX_MATCH)
+    return ((torch.clamp(cand, min=0) << 12)
+            | (torch.where(has, grade, 0) << 3)
+            | (torch.where(p4 >= 4, 2, 1) << 1) | has.to(torch.int64))
+
+
+def _winner_at_positions(packed_r, sp, hist: int, pos_pay):
+    """Scatter a packed winner back to position space (sp is a
+    permutation of each row) -> (has, tier, floor, cand-safe, dist) over
+    the payload."""
+    packed = torch.zeros_like(packed_r).scatter_(1, sp, packed_r)[:, hist:]
+    has = (packed & 1) == 1
+    cand = packed >> 12
+    return (has, (packed >> 1) & 3, (packed >> 3) & 0x1FF,
+            torch.where(has, cand, 0), pos_pay - cand)
+
+
 def _match_candidates(data, valid_lo, valid_hi, cfg: LevelConfig,
                       max_dist: int = tables.WINDOW_SIZE, hist: int = HIST):
     """Best match (length int32, dist int32) at every payload position of
@@ -170,74 +275,74 @@ def _match_candidates(data, valid_lo, valid_hi, cfg: LevelConfig,
 
     data: uint8[B, T] (T = hist + seg_len); valid data of row b occupies
     [valid_lo[b], valid_hi[b]) (int64[B, 1]).  Lengths from the
-    fingerprint descent may overestimate on a collision; callers run the
-    exact verification pass."""
-    if cfg.full_ladder or cfg.top2 or cfg.hash3:
-        raise NotImplementedError(_NOT_PORTED)
+    fingerprint descent or the ladder floor may overestimate on a
+    collision; callers run the exact verification pass."""
     t = data.shape[1]
-    seg_len = t - hist
     dev = data.device
     w = _u32_words(data)
     fp = _fingerprints(w)
-    h = _mul32(w, HASH_MUL) >> (32 - HASH_BITS)
 
-    # ---- sorted-bucket candidates: one int64 key (hash | pos) gives the
-    # reference's (hash, pos) order for every segment length ----
-    pos = torch.arange(t, device=dev)
-    pos_bits = max(1, (t - 1).bit_length())
-    skey = torch.sort((h << pos_bits) | pos, dim=1).values
-    sp = skey & ((1 << pos_bits) - 1)
-    sh = skey >> pos_bits
-    # short ladder probes in rank space: exact words + 16/64-byte prints
-    w_s, w4_s, f16_s, f64_s = (
-        torch.gather(f, 1, sp) for f in (w, torch.roll(w, -4, 1), fp[16], fp[64]))
+    # ---- sorted-bucket candidates, probed in rank space: the probe
+    # fields are fetched by ONE row gather of a [B, T, R] record ----
+    sp, sh = _sorted_buckets(_hash15(w), t)
+    fields = torch.stack(_probe_fields(w, fp, cfg.full_ladder), 2)
+    probes = torch.gather(
+        fields, 1, sp[:, :, None].expand(-1, -1, fields.shape[2])).unbind(2)
+    del fields
 
     sp_ok = sp < valid_hi
     best_score = torch.full_like(sp, _NEG_INF)
     best_cand = torch.zeros_like(sp)
     best_p4 = torch.zeros(sp.shape, dtype=torch.int32, device=dev)
-    for k in range(1, cfg.k_candidates + 1):
-        cand_p = _shift_right(sp, k, -1)
-        cand_h = _shift_right(sh, k, -1)
-        w_k, w4_k, f16_k, f64_k = (
-            _shift_right(a, k, 0) for a in (w_s, w4_s, f16_s, f64_s))
+    if cfg.top2:
+        score2, cand2, p42 = (torch.full_like(sp, _NEG_INF),
+                              torch.zeros_like(sp), torch.zeros_like(best_p4))
+    # every probe array padded once with K leading fill values: the k-th
+    # previous rank is then a view, not a copy
+    kmax = cfg.k_candidates
+
+    def padded(a, fill):
+        return torch.cat([a.new_full((a.shape[0], kmax), fill), a], 1)
+
+    sp_pad, sh_pad = padded(sp, -1), padded(sh, -1)
+    probes_pad = [padded(a, 0) for a in probes]
+    for k in range(1, kmax + 1):
+        lo = kmax - k  # the k-th previous rank starts here in a padded row
+        cand_p = sp_pad[:, lo:lo + t]
+        cand_h = sh_pad[:, lo:lo + t]
+        xs = [a_pad[:, lo:lo + t] ^ a for a_pad, a in zip(probes_pad, probes)]
         dist = sp - cand_p
         ok = ((cand_p >= 0) & (cand_h == sh) & (dist <= max_dist)
               & (cand_p >= valid_lo) & (cand_p < valid_hi) & sp_ok)
-        x4 = w_k ^ w_s
-        plen4 = _prefix_bytes_equal(x4)
-        len4 = (x4 == 0) & ok
-        x8 = w4_k ^ w4_s
-        plen8 = torch.where(len4, _prefix_bytes_equal(x8), 0)
-        len8 = len4 & (x8 == 0)
-        eq16 = (f16_k == f16_s) & len8
-        eq64 = (f64_k == f64_s) & eq16
-        grade = (torch.where(ok, plen4, 0) + plen8
-                 + torch.where(eq16, 8, 0) + torch.where(eq64, 48, 0))
+        plen4 = _prefix_bytes_equal(xs[0])
+        len4 = (xs[0] == 0) & ok
+        plen8 = torch.where(len4, _prefix_bytes_equal(xs[1]), 0)
+        eq = len4 & (xs[1] == 0)
+        grade = torch.where(ok, plen4, 0) + plen8
+        for hit, weight in _ladder_rungs(xs[2:], cfg.full_ladder):
+            eq = eq & hit
+            grade = grade + torch.where(eq, weight, 0)
         usable = ok & (plen4 >= 3)
         score = torch.where(usable, (grade.to(torch.int64) << 17) - dist,
                             _NEG_INF)
         better = score > best_score  # first max wins: argmax parity
+        if cfg.top2:
+            # the runner-up: the old best when a new best arrives,
+            # else the new score if it beats the old runner-up
+            b2 = ~better & (score > score2)
+            score2 = torch.where(better, best_score,
+                                 torch.where(b2, score, score2))
+            cand2 = torch.where(better, best_cand,
+                                torch.where(b2, cand_p, cand2))
+            p42 = torch.where(better, best_p4, torch.where(b2, plen4, p42))
         best_score = torch.where(better, score, best_score)
         best_cand = torch.where(better, cand_p, best_cand)
         best_p4 = torch.where(better, plen4, best_p4)
+    del probes, probes_pad
 
-    # winner back to position space: one packed scatter (sp is a
-    # permutation of each row)
-    btier_r = torch.where(best_p4 >= 4, 2, 1)  # 1 = exactly-3-byte candidate
-    has_r = best_score > _NEG_INF
-    grade_r = torch.clamp((best_score + (sp - best_cand)) >> 17, 0, MAX_MATCH)
-    floor_r = torch.where(has_r, grade_r, 0)
-    packed_r = ((torch.clamp(best_cand, min=0) << 12) | (floor_r << 3)
-                | (btier_r << 1) | has_r.to(torch.int64))
-    packed = torch.zeros_like(packed_r).scatter_(1, sp, packed_r)[:, hist:]
-    has = (packed & 1) == 1
-    btier = (packed >> 1) & 3
-    bfloor = (packed >> 3) & 0x1FF
-    bcand = packed >> 12
     pos_pay = torch.arange(hist, t, device=dev)
-    bdist = pos_pay - bcand
-    bsafe = torch.where(has, bcand, 0)
+    has, btier, bfloor, bsafe, bdist = _winner_at_positions(
+        _pack_winner(best_score, best_cand, best_p4, sp), sp, hist, pos_pay)
 
     def at(a, idx):
         idx = torch.clamp(idx, max=t - 1)
@@ -252,12 +357,26 @@ def _match_candidates(data, valid_lo, valid_hi, cfg: LevelConfig,
 
     if cfg.exact:
         # exact linear extension in 4-byte steps (the fallback)
-        length = torch.zeros_like(bcand)
+        length = torch.zeros_like(bsafe)
         alive = has
         for off in range(0, MAX_MATCH + 4, 4):
             eq = _prefix_bytes_equal(at(w, bsafe + off) ^ at(w, pos_pay + off))
             length = length + torch.where(alive, eq, 0)
             alive = alive & (eq == 4)
+    elif cfg.full_ladder:
+        # exact 64-byte record compare from the ladder floor: the full
+        # ladder's inter-rung gaps are <= 63 bytes, so 16 words resolve
+        # the whole extension byte-exactly
+        length = _rec_descent(w, has, bfloor, bsafe, pos_pay)
+        if cfg.top2:
+            # resolve the runner-up exactly too and keep the longer
+            # (ties -> nearer)
+            has2, _, bfloor2, bsafe2, bdist2 = _winner_at_positions(
+                _pack_winner(score2, cand2, p42, sp), sp, hist, pos_pay)
+            length2 = _rec_descent(w, has2, bfloor2, bsafe2, pos_pay)
+            take2 = (length2 > length) | ((length2 == length) & (bdist2 < bdist))
+            length = torch.where(take2, length2, length)
+            bdist = torch.where(take2, bdist2, bdist)
     else:
         # doubling descent from the ladder floor over the fingerprint
         # pyramid (the short ladder leaves a 64 -> 258 gap: spans from
@@ -282,6 +401,10 @@ def _match_candidates(data, valid_lo, valid_hi, cfg: LevelConfig,
             bdist = torch.where(better, d, bdist)
             length = torch.where(better, len_d, length)
 
+    if cfg.hash3:
+        length, bdist = _hash3_pass(w, length, bdist, valid_lo, valid_hi,
+                                    max_dist, hist, pos_pay)
+
     # clamp to data end and legality
     length = torch.clamp(length, max=MAX_MATCH)
     length = torch.minimum(length, torch.clamp(valid_hi - pos_pay, min=0))
@@ -289,6 +412,54 @@ def _match_candidates(data, valid_lo, valid_hi, cfg: LevelConfig,
     length = torch.where(too_far, 0, length)
     length = torch.where(length >= MIN_MATCH, length, 0)
     return length.to(torch.int32), bdist.to(torch.int32)
+
+
+def _rec_descent(w, has, floor, bsafe, pos_pay):
+    """Length = floor + the exact common prefix of the 16 words (64
+    bytes) at floor past the candidate and past the position: the
+    reference's "rec" descent (its record row ``rec64[i, j]`` is the
+    word at ``(i + 4j) mod T``)."""
+    b, s = has.shape
+    t = w.shape[1]
+    length = torch.where(has, floor, 0)
+    offs = 4 * torch.arange(16, device=w.device)
+
+    def words(start):
+        idx = (torch.clamp(start, max=t - 1)[:, :, None] + offs) % t
+        return torch.gather(w, 1, idx.reshape(b, s * 16)).reshape(b, s, 16)
+
+    x = words(bsafe + length) ^ words(pos_pay + length)
+    # the first unequal word f (16 if none): 4f equal bytes, then the
+    # equal low bytes of word f
+    miss = x != 0
+    first = torch.where(miss.any(2), miss.to(torch.int32).argmax(2), 16)
+    x_f = torch.gather(x, 2, torch.clamp(first, max=15)[:, :, None])[:, :, 0]
+    lcp = 4 * first + torch.where(first < 16, _prefix_bytes_equal(x_f), 0)
+    return torch.where(has, length + lcp, 0)
+
+
+def _hash3_pass(w, length, bdist, valid_lo, valid_hi, max_dist: int,
+                hist: int, pos_pay):
+    """Pure length-3 matches via a 3-byte hash: the nearest of the two
+    previous same-hash rows whose low 24 bits equal exactly, within
+    min(TOO_FAR, max_dist), used only where no match was found."""
+    t = w.shape[1]
+    w3 = w & 0xFFFFFF
+    sp3, sh3 = _sorted_buckets(_hash15(w3), t)
+    w3_s = torch.gather(w3, 1, sp3)
+    sp3_ok = sp3 < valid_hi
+    best3 = torch.full_like(sp3, -1)
+    for k in (1, 2):
+        cand_p = _shift_right(sp3, k, -1)
+        ok3 = ((cand_p >= 0) & (_shift_right(sh3, k, -1) == sh3)
+               & (_shift_right(w3_s, k, 0) == w3_s)
+               & (sp3 - cand_p <= min(TOO_FAR, max_dist))
+               & (cand_p >= valid_lo) & (cand_p < valid_hi) & sp3_ok)
+        best3 = torch.where(ok3 & (best3 < 0), cand_p, best3)
+    cand3 = torch.full_like(best3, -1).scatter_(1, sp3, best3)[:, hist:]
+    use3 = (length < MIN_MATCH) & (cand3 >= 0)
+    return (torch.where(use3, MIN_MATCH, length),
+            torch.where(use3, pos_pay - cand3, bdist))
 
 
 def jump_array(take, plen, seg_len: int, p: int) -> torch.Tensor:
@@ -375,6 +546,15 @@ def _summarize_batch(data, n_valid, take, plen, dist, on_path_full,
                 hist_lit=hist_lit, hist_dist=hist_dist, exact=exact)
 
 
+def _dist_counts_batch(is_match, dist) -> torch.Tensor:
+    """Per-segment exact-distance histograms of the selected matches
+    (HOT_DIST_BINS bins, overflow clipped into the last one)."""
+    md = torch.clamp(torch.where(is_match, dist, 0), 0, HOT_DIST_BINS - 1)
+    out = torch.zeros((is_match.shape[0], HOT_DIST_BINS), dtype=torch.int32,
+                      device=is_match.device)
+    return out.scatter_add_(1, md.to(torch.int64), is_match.to(torch.int32))
+
+
 def lz77_analyze(data, n_valid, hist_len, *, level: int, seg_len: int,
                  force_exact: bool = False, window_bits: int = 15,
                  hist: int = HIST) -> dict[str, torch.Tensor]:
@@ -384,7 +564,8 @@ def lz77_analyze(data, n_valid, hist_len, *, level: int, seg_len: int,
     hist_len: int32[B] valid history bytes, all on one device.  Returns
     the reference's dict over the payload ([B, seg_len]): on_path,
     is_match, length, dist, hist_lit[B, 286] (EOB excluded),
-    hist_dist[B, 30], exact[B], cand_length, cand_dist."""
+    hist_dist[B, 30], exact[B], cand_length, cand_dist, and for the
+    two-round levels dist_counts[B, HOT_DIST_BINS]."""
     cfg = level_config(level)
     if force_exact and not cfg.exact:
         cfg = dataclasses.replace(cfg, exact=True)
@@ -398,6 +579,8 @@ def lz77_analyze(data, n_valid, hist_len, *, level: int, seg_len: int,
                            seg_len, hist)
     out["cand_length"] = length
     out["cand_dist"] = dist
+    if cfg.two_round:
+        out["dist_counts"] = _dist_counts_batch(out["is_match"], out["dist"])
     return out
 
 
@@ -421,17 +604,133 @@ def lz77_trim_candidates(data, is_match, length, dist, cand_length,
 
 
 def lz77_reparse_greedy(data, cand_length, cand_dist, n_valid, *,
-                        seg_len: int, hist: int = HIST,
-                        lazy: bool = True) -> dict[str, torch.Tensor]:
+                        seg_len: int, hist: int = HIST, lazy: bool = True,
+                        two_round: bool = False) -> dict[str, torch.Tensor]:
     """Greedy/lazy take-defer + parse over given candidates: the tail of
-    :func:`lz77_analyze` for the trim-and-reparse loop."""
+    :func:`lz77_analyze` for the trim-and-reparse loop (with
+    ``two_round``, dist_counts too)."""
     take, length = _take_defer(cand_length, n_valid, seg_len, lazy)
     on_path_full = _mark_batched(take, length, seg_len, _ceil_pow2(seg_len))
     out = _summarize_batch(data, n_valid, take, length, cand_dist,
                            on_path_full, seg_len, hist)
     out["cand_length"] = length
     out["cand_dist"] = cand_dist
+    if two_round:
+        out["dist_counts"] = _dist_counts_batch(out["is_match"], out["dist"])
     return out
+
+
+def _hot_lane(data, n_valid, hist_len, hot, *, seg_len: int, hist: int,
+              max_dist: int):
+    """Exact strided-run candidates at the mined hot distances
+    hot int32[B, HOT_DISTS]: run lengths of data[i] == data[i-d] by one
+    suffix scan; per position the longest run wins (ties -> nearer).  A
+    distance of 0 is an empty lane; lanes are gated by max_dist and the
+    history length.  -> (hot_len, hot_d) int32[B, seg_len]."""
+    b = data.shape[0]
+    pay = torch.arange(seg_len, device=data.device)
+    abs_idx = pay + hist
+    hot = hot.to(torch.int64)
+    src = torch.clamp(abs_idx - hot[:, :, None], min=0)   # [B, H, S]
+    srcs = torch.gather(data, 1, src.reshape(b, -1)).reshape(src.shape)
+    runs = _run_lengths(srcs == data[:, None, hist:hist + seg_len])
+    n = n_valid.to(torch.int64)[:, None]
+    lo = hist - hist_len.to(torch.int64)[:, None]
+    hot_len = torch.zeros((b, seg_len), dtype=torch.int64, device=data.device)
+    hot_d = torch.zeros_like(hot_len)
+    for j in range(HOT_DISTS):
+        d_j = hot[:, j:j + 1]
+        ok_j = ((abs_idx - d_j >= lo) & (pay < n) & (d_j >= 1)
+                & (d_j <= max_dist))
+        len_j = torch.where(ok_j, torch.clamp(runs[:, j], max=MAX_MATCH), 0)
+        len_j = torch.minimum(len_j, torch.clamp(n - pay, min=0))
+        better = (len_j > hot_len) | ((len_j == hot_len) & (d_j < hot_d))
+        hot_len = torch.where(better, len_j, hot_len)
+        hot_d = torch.where(better, d_j, hot_d)
+    return hot_len.to(torch.int32), hot_d.to(torch.int32)
+
+
+def lz77_parse_cost(data, cand_length, cand_dist, n_valid, lit_cost,
+                    dist_cost, hist_len=None, hot_dists=None, *,
+                    seg_len: int, hist: int = HIST, lazy: bool = True,
+                    window_bits: int = 15) -> dict[str, torch.Tensor]:
+    """Cost-aware re-parse (round B): round A's candidates re-taken with
+    exact bit costs (lit_cost [B, 286], dist_cost [B, 30], small integer
+    code lengths in any dtype).  A match is taken when its coded bits
+    undercut the literals it covers, and lazy deferral compares bit
+    gains.  The reference's kernel-branch order, in int32: literal bits
+    (kernel), their exclusive prefix sum, the optional hot-stride lane
+    (hot_dists int32[B, HOT_DISTS]), gains (kernel), take/defer, then
+    the mark path and the histograms.  Costs are small integers and the
+    prefix stays below 2^24, so the integers equal the reference's
+    float32 branch; the NEG_GAIN sentinel never decides a take because
+    a take requires gain > 0."""
+    if hist_len is None:
+        hist_len = torch.zeros_like(n_valid)
+    max_dist = 1 << window_bits
+    pay = torch.arange(seg_len, device=data.device)
+    length = torch.where(pay < n_valid[:, None], cand_length, 0)
+    length = torch.where(cand_dist <= max_dist, length, 0)
+    lcost = lit_cost.to(torch.int32).contiguous()
+    dcost = dist_cost.to(torch.int32).contiguous()
+    litbits = cost_cu.litbits(data[:, hist:hist + seg_len], lcost)
+    pref = torch.cat([torch.zeros_like(litbits[:, :1]),
+                      torch.cumsum(litbits, 1, dtype=torch.int32)], 1)
+    hot_len = hot_d = None
+    if hot_dists is not None:
+        hot_len, hot_d = _hot_lane(data, n_valid, hist_len, hot_dists,
+                                   seg_len=seg_len, hist=hist,
+                                   max_dist=max_dist)
+    length, dist, gain = cost_cu.gain(length, cand_dist.contiguous(), hot_len,
+                                      hot_d, pref, lcost, dcost)
+    take = (length >= MIN_MATCH) & (gain > 0)
+    if lazy:
+        nxt = torch.cat([gain[:, 1:],
+                         torch.full_like(gain[:, :1], cost_cu.NEG_GAIN)], 1)
+        take = take & ~(nxt - litbits > gain)
+    on_path_full = _mark_batched(take, length, seg_len, _ceil_pow2(seg_len))
+    return _summarize_batch(data, n_valid, take, length, dist, on_path_full,
+                            seg_len, hist)
+
+
+def _hot_dists_host(dist_counts):
+    """Top strided distances per segment from the round-A exact-distance
+    histogram (host).  Distances <= 4 are covered by the always-on run
+    scan; low-count strides are not worth a candidate lane."""
+    b = dist_counts.shape[0]
+    hot = np.zeros((b, HOT_DISTS), np.int32)
+    for i in range(b):
+        c = dist_counts[i].copy()
+        c[:5] = 0
+        # the histogram clips distances >= HOT_DIST_BINS into the last
+        # bin — it is an overflow counter, not a real stride
+        c[HOT_DIST_BINS - 1] = 0
+        top = np.argpartition(c, -HOT_DISTS)[-HOT_DISTS:]
+        top = top[np.argsort(-c[top])]
+        for j, d in enumerate(top):
+            if c[d] >= 64:
+                hot[i, j] = d
+    return hot
+
+
+def _cost_tables_host(hist_lit, hist_dist):
+    """Round-A histograms -> float32 bit-cost tables (host).
+
+    Canonical code lengths from the round-A distribution; symbols the
+    round-A parse never produced get a pessimistic-but-usable default
+    so round B may still introduce them when clearly profitable.
+    """
+    b = hist_lit.shape[0]
+    lit_cost = np.full((b, 286), 13.0, np.float32)
+    dist_cost = np.full((b, 30), 13.0, np.float32)
+    for i in range(b):
+        hl = hist_lit[i].astype(np.int64)
+        hl[tables.EOB] += 1
+        ll = huffman.code_lengths_from_frequencies(hl)
+        dl = huffman.code_lengths_from_frequencies(hist_dist[i].astype(np.int64))
+        lit_cost[i, : ll.size] = np.where(ll > 0, ll, 13.0)
+        dist_cost[i, : dl.size] = np.where(dl > 0, dl, 13.0)
+    return lit_cost, dist_cost
 
 
 def _all_exact(res) -> bool:
@@ -441,15 +740,17 @@ def _all_exact(res) -> bool:
 def analyze2_finish(res, data, n_valid, hist_len, *, level: int,
                     seg_len: int, window_bits: int = 15,
                     hist: int = HIST) -> dict[str, torch.Tensor]:
-    """Repair a round-A result until it is byte-exact: trim the
-    overestimated candidates and re-parse, up to _TRIM_RETRIES times,
-    then re-run with exact extension.  Only the greedy-only levels are
-    ported; two-round levels raise."""
+    """Finish a round-A result: repair it until it is byte-exact and, for
+    the two-round levels, run the cost-aware round B on its candidates.
+
+    An inexact round A has its candidates trimmed first.  Greedy levels
+    then re-parse (trim and re-parse up to _TRIM_RETRIES times, then
+    re-run with exact extension).  Two-round levels build bit-cost
+    tables from round A's (unrepaired) histograms, mine hot strides,
+    and run round B up to _TRIM_RETRIES times, trimming after each
+    inexact pass; then one exact-extension round A feeds a final,
+    unchecked round B."""
     cfg = level_config(level)
-    if cfg.two_round:
-        raise NotImplementedError(_NOT_PORTED)
-    if cfg.exact or _all_exact(res):
-        return res
     cd = res["cand_dist"]
 
     def trim(r, cl):
@@ -457,16 +758,49 @@ def analyze2_finish(res, data, n_valid, hist_len, *, level: int,
                                     r["dist"], cl, cd, n_valid,
                                     seg_len=seg_len, hist=hist)
 
-    cl = trim(res, res["cand_length"])
-    for _ in range(_TRIM_RETRIES):
-        res = lz77_reparse_greedy(data, cl, cd, n_valid, seg_len=seg_len,
-                                  hist=hist, lazy=cfg.lazy)
-        if _all_exact(res):
-            return res
+    cl = res["cand_length"]
+    exact_a = cfg.exact or _all_exact(res)
+    if not exact_a:
         cl = trim(res, cl)
-    return lz77_analyze(data, n_valid, hist_len, level=level,
+    if not cfg.two_round:
+        if exact_a:
+            return res
+        for _ in range(_TRIM_RETRIES):
+            res = lz77_reparse_greedy(data, cl, cd, n_valid, seg_len=seg_len,
+                                      hist=hist, lazy=cfg.lazy)
+            if _all_exact(res):
+                return res
+            cl = trim(res, cl)
+        return lz77_analyze(data, n_valid, hist_len, level=level,
+                            seg_len=seg_len, force_exact=True,
+                            window_bits=window_bits, hist=hist)
+
+    dev = data.device
+    lit_cost, dist_cost = _cost_tables_host(res["hist_lit"].cpu().numpy(),
+                                            res["hist_dist"].cpu().numpy())
+    hot = None
+    if cfg.mine:
+        hot_np = _hot_dists_host(res["dist_counts"].cpu().numpy())
+        if hot_np.any():  # all-zero rows: skip the hot lane
+            hot = torch.from_numpy(hot_np).to(dev)
+    lc = torch.from_numpy(lit_cost.astype(np.int32)).to(dev)
+    dc = torch.from_numpy(dist_cost.astype(np.int32)).to(dev)
+
+    def round_b(cand_length, cand_dist):
+        return lz77_parse_cost(data, cand_length, cand_dist, n_valid, lc, dc,
+                               hist_len, hot, seg_len=seg_len, hist=hist,
+                               lazy=cfg.lazy, window_bits=window_bits)
+
+    for _ in range(_TRIM_RETRIES):
+        res2 = round_b(cl, cd)
+        if _all_exact(res2):
+            return res2
+        cl = trim(res2, cl)
+    # trims keep surfacing collisions: exact-extension round A
+    resx = lz77_analyze(data, n_valid, hist_len, level=level,
                         seg_len=seg_len, force_exact=True,
                         window_bits=window_bits, hist=hist)
+    return round_b(resx["cand_length"], resx["cand_dist"])
 
 
 def state_from_numpy(res: dict, device) -> dict[str, torch.Tensor]:

@@ -7,8 +7,10 @@ tests).  This file imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Random and extreme inputs, odd shapes (P below one 1024-position chunk,
-batches of 1 and 9 rows, strided payload rows); exact equality (integer
-kernels), slot values compared under their n-bit masks.
+batches of 1 and 9 rows, strided payload rows, matches running into the
+row end, with and without the hot lane); exact equality (integer
+kernels), slot values compared under their n-bit masks; gzip on the card
+at levels 1, 4, 6 and 9 equal to the CPU port.
 """
 
 import gzip
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from decompress_tpu_torch import gz
-from decompress_tpu_torch.ops import hist_cu, pack_cu, parse_cu
+from decompress_tpu_torch.ops import cost_cu, hist_cu, pack_cu, parse_cu
 
 pytestmark = pytest.mark.cuda
 CORPUS = pathlib.Path(__file__).parent / "corpus"
@@ -95,14 +97,58 @@ def test_slots_kernel(dev, b, t):
     assert torch.equal(v23 & ((one << n23) - 1), w23 & ((one << m23) - 1))
 
 
+@pytest.mark.parametrize("b,t", [(1, 300), (9, 5000), (8, 130560)])
+def test_litbits_kernel(dev, b, t):
+    rng = np.random.default_rng(t + 2)
+    batch = torch.from_numpy(rng.integers(0, 256, (b, 64 + t), dtype=np.uint8)).to(dev)
+    lcost = torch.from_numpy(rng.integers(1, 16, (b, 286)).astype(np.int32)).to(dev)
+    before = cost_cu.litbits.launches
+    got = cost_cu.litbits(batch[:, 64:], lcost)
+    torch.cuda.synchronize()
+    assert cost_cu.litbits.launches == before + 1
+    assert torch.equal(got, cost_cu.litbits_plain(batch[:, 64:], lcost))
+
+
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("b,t", [(1, 300), (9, 5000), (8, 130560)])
+def test_gain_kernel(dev, b, t, hot):
+    rng = np.random.default_rng(t + 3)
+
+    def put(a):
+        return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+    lcost, dcost = put(rng.integers(1, 16, (b, 286))), put(rng.integers(1, 16, (b, 30)))
+    lb = torch.gather(lcost, 1, put(rng.integers(0, 256, (b, t))).long())
+    pref = torch.cat([torch.zeros_like(lb[:, :1]), torch.cumsum(lb, 1, dtype=torch.int32)], 1)
+    ln = rng.integers(0, 259, (b, t))
+    ln[:, -300:] = 258  # matches running into the row end
+    length, dist = put(ln), put(rng.integers(1, 32769, (b, t)))
+    hl = hd = None
+    if hot:
+        hl, hd = put(rng.integers(0, 259, (b, t))), put(rng.integers(1, 32769, (b, t)))
+    before = cost_cu.gain.launches
+    got = cost_cu.gain(length, dist, hl, hd, pref, lcost, dcost)
+    torch.cuda.synchronize()
+    assert cost_cu.gain.launches == before + 1
+    want = cost_cu.gain_plain(length, dist, hl, hd, pref, lcost, dcost)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_wrappers_reject_bad_tensors(dev):
     with pytest.raises(TypeError):
         parse_cu.mark_path(torch.zeros((1, 1024), dtype=torch.int64, device=dev))
     with pytest.raises(ValueError):
         parse_cu.mark_path(torch.zeros((1, 1000), dtype=torch.int32, device=dev))
+    z = torch.zeros((2, 100), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # pref must be [B, T + 1]
+        cost_cu.gain(z, z, None, None, z, z[:, :1].expand(2, 286).contiguous(),
+                     z[:, :30].contiguous())
+    with pytest.raises(TypeError):  # the payload is uint8
+        cost_cu.litbits(z, torch.zeros((2, 286), dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("level", [1, 4])
+@pytest.mark.parametrize("level", [1, 4, 6, 9])
 def test_gzip_on_card_matches_cpu(dev, level):
     x = (CORPUS / "paper1").read_bytes()
     out = gz.compress(x, level=level, segment_size=4096, device="cuda")

@@ -3,10 +3,11 @@
 ``decompress_tpu_torch.gz.compress(..., device="cpu")`` (the plain
 PyTorch versions of the kernels) against ``decompress_tpu.gz.compress``
 (JAX on the CPU), byte for byte, and ``gzip.decompress`` restores every
-output.  Small segments give several batches and a tail batch (the
-host-built batch path); one case at the default SEGMENT_SIZE reaches the
-device-assembled batch path and the two-key sort order of segments
-longer than 2^17 positions.
+output, at levels 0-9 and at the default level (6, round B).  Small
+segments give several batches and a tail batch (the host-built batch
+path); the cases at the default SEGMENT_SIZE reach the device-assembled
+batch path and the two-key sort order of segments longer than 2^17
+positions.
 """
 
 import gzip
@@ -20,6 +21,7 @@ import torch
 from decompress_tpu import de as ref_de
 from decompress_tpu import gz as ref_gz
 from decompress_tpu_torch import de, gz
+from decompress_tpu_torch.ops import lz77
 
 CORPUS = pathlib.Path(__file__).parent / "corpus"
 
@@ -28,7 +30,7 @@ def _read(name):
     return (CORPUS / name).read_bytes()
 
 
-@pytest.mark.parametrize("level", [1, 4])
+@pytest.mark.parametrize("level", [1, 4, 5, 6, 7, 9])
 @pytest.mark.parametrize("name", ["progc", "obj1", "paper1"])
 def test_gzip_matches_reference(name, level):
     x = _read(name)
@@ -45,6 +47,25 @@ def test_gzip_default_segment_size_matches_reference():
     got = gz.compress(x, level=4, device="cpu")
     assert got == want
     assert gzip.decompress(got) == x
+
+
+def test_gzip_default_level_matches_reference(monkeypatch):
+    """No level given: both compress at level 6 (round B), at the default
+    segment size; pic's 216-byte row stride is mined."""
+    mined = []
+    hot_dists = lz77._hot_dists_host
+
+    def recorded(counts):
+        mined.append(hot_dists(counts))
+        return mined[-1]
+
+    monkeypatch.setattr(lz77, "_hot_dists_host", recorded)
+    x = _read("book1")[:200_000] + _read("pic")[:220_000]
+    want = ref_gz.compress(x)
+    got = gz.compress(x, device="cpu")
+    assert got == want
+    assert gzip.decompress(got) == x
+    assert any((hot == 216).any() for hot in mined)
 
 
 @pytest.mark.parametrize("level", [0, 4])
@@ -91,8 +112,11 @@ def test_empty_and_header_fields_match_reference():
 
 
 def test_unported_levels_raise():
-    with pytest.raises(NotImplementedError, match="round B"):
-        gz.compress(b"abc" * 100, 6, device="cpu")
+    """Every level of the reference runs; a level outside its table
+    raises ValueError."""
+    for level in (13, 99, -1):
+        with pytest.raises(ValueError, match="unknown level"):
+            gz.compress(b"abc" * 100, level, device="cpu")
 
 
 def test_default_device_raises_without_cuda():

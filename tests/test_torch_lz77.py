@@ -1,12 +1,15 @@
-"""Port's round-A LZ77 analysis == the reference's, array for array.
+"""Port's LZ77 analysis == the reference's, array for array.
 
 Same numpy batches through ``decompress_tpu.ops.lz77`` (JAX on the CPU,
 XLA mark path and histograms) and ``decompress_tpu_torch.ops.lz77`` (the
 plain PyTorch versions of the kernels): every output array must be
-equal, at levels 1 and 4, without and with 32 KiB of history, with
-``force_exact``, with a 1 KiB window, and through the trim-and-reparse
-repair of a corrupted candidate.  The copied constants are held equal
-to the reference's.
+equal, at levels 1 and 4 (short ladder) and 5, 6 and 9 (full ladder,
+hash3 at 6 and 9, top2 at 9, ``dist_counts``), without and with 32 KiB
+of history, with ``force_exact``, with a 1 KiB window, and through the
+repair of corrupted candidates: the greedy trim-and-reparse loop, and at
+level 6 the trim before round B, round B's retry loop and its
+exact-extension fallback.  The copied constants are held equal to the
+reference's.
 """
 
 import dataclasses
@@ -19,9 +22,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from decompress_tpu.ops import cost_pl
 from decompress_tpu.ops import lz77 as ref
 from decompress_tpu_torch import de
-from decompress_tpu_torch.ops import lz77
+from decompress_tpu_torch.ops import cost_cu, lz77
 
 SEG = 4096
 CORPUS = pathlib.Path(__file__).parent / "corpus"
@@ -58,7 +62,7 @@ def _both(data, n_valid, hist_len, **kw):
 
 
 @pytest.mark.parametrize("hist", [0, lz77.HIST])
-@pytest.mark.parametrize("level", [1, 4])
+@pytest.mark.parametrize("level", [1, 4, 5, 6, 9])
 def test_analyze_matches_reference(level, hist):
     got, want = _both(*_batch(hist), level=level, hist=hist)
     assert want["exact"].all() and want["is_match"].any()
@@ -77,17 +81,41 @@ def test_analyze_small_window_matches_reference():
     _assert_same(got, want)
 
 
-def _corrupted():
-    """The trim-repair segment of tests/test_trim_repair.py, with one
-    selected match's candidate overestimated by 5 bytes."""
+@pytest.mark.parametrize("level", [6, 9])
+def test_analyze_full_ladder_force_exact_matches_reference(level):
+    got, want = _both(*_batch(lz77.HIST), level=level, hist=lz77.HIST,
+                      force_exact=True)
+    _assert_same(got, want)
+
+
+def test_analyze_full_ladder_small_window_matches_reference():
+    got, want = _both(*_batch(lz77.HIST), level=6, hist=lz77.HIST,
+                      window_bits=10)
+    assert want["dist"].max() <= 1 << 10
+    _assert_same(got, want)
+
+
+def _trim_segment():
+    """The trim-repair segment of tests/test_trim_repair.py."""
     rng = np.random.default_rng(7)
     base = bytes(rng.integers(32, 96, 700, dtype=np.uint8))
     raw = (base + b"abcdefgh" * 40 + base[:500] + b"abcdefgi" * 40 + base) * 3
     data = np.frombuffer(raw[:SEG], np.uint8).copy()[None, :]
-    n_valid = np.array([SEG], np.int32)
-    res = _np_dict(ref.lz77_analyze(jnp.asarray(data), jnp.asarray(n_valid),
-                                    jnp.zeros(1, jnp.int32), level=4,
-                                    seg_len=SEG, hist=0))
+    return data, np.array([SEG], np.int32)
+
+
+def _round_a(data, n_valid, level):
+    """The reference's round A of one segment without history."""
+    return _np_dict(ref.lz77_analyze(jnp.asarray(data), jnp.asarray(n_valid),
+                                     jnp.zeros(1, jnp.int32), level=level,
+                                     seg_len=SEG, hist=0))
+
+
+def _corrupted():
+    """The trim-repair segment with one selected match's candidate
+    overestimated by 5 bytes."""
+    data, n_valid = _trim_segment()
+    res = _round_a(data, n_valid, 4)
     ln, dist, cl = res["length"][0], res["dist"][0], res["cand_length"].copy()
     s = next(int(s) for s in np.nonzero(res["is_match"][0])[0]
              if 16 <= ln[s] < 200 and s + ln[s] + 8 < SEG
@@ -128,18 +156,84 @@ def test_trim_and_reparse_match_reference():
     _assert_same(got, want)
 
 
+def _corrupt_all(cl, data, cd):
+    """Every candidate of at least MIN_MATCH overestimated by 5 bytes."""
+    cl = cl.copy()
+    m = cl >= lz77.MIN_MATCH
+    cl[m] = np.minimum(cl[m] + 5, lz77.MAX_MATCH)
+    return cl
+
+
+def _corrupt_long(cl, data, cd):
+    """Candidates of 16..199 bytes that end before a mismatch,
+    overestimated by 5 bytes."""
+    cl = cl.copy()
+    for s in np.nonzero((cl[0] >= 16) & (cl[0] < 200))[0]:
+        e = s + cl[0, s]
+        if e + 8 < SEG and data[0, e] != data[0, e - cd[0, s]]:
+            cl[0, s] += 5
+    return cl
+
+
+@pytest.mark.parametrize("corrupt,passes", [
+    (_corrupt_long, [False, True]),  # trim, one retry, exact
+    (_corrupt_all, [False, False, False, True]),  # exact-extension fallback
+], ids=["retry", "exact_fallback"])
+def test_round_b_repair_matches_reference(monkeypatch, corrupt, passes):
+    """analyze2_finish at level 6 on an inexact round A (corrupted
+    candidates re-parsed by lz77_reparse_greedy with two_round): the
+    trim before round B, round B's trim-and-retry loop and, when three
+    passes stay inexact, the exact-extension round A with its final
+    unchecked round B; ``passes`` lists whether each round-B pass of the
+    port was exact."""
+    data, n_valid = _trim_segment()
+    res = _round_a(data, n_valid, 6)
+    cd = res["cand_dist"]
+    cl = corrupt(res["cand_length"], data, cd)
+    jd, jn = jnp.asarray(data), jnp.asarray(n_valid)
+    td, tn = torch.from_numpy(data), torch.from_numpy(n_valid)
+    want_bad = _np_dict(ref.lz77_reparse_greedy(
+        jd, jnp.asarray(cl), jnp.asarray(cd), jn, seg_len=SEG, hist=0,
+        lazy=True, two_round=True))
+    got_bad = lz77.lz77_reparse_greedy(td, torch.from_numpy(cl),
+                                       torch.from_numpy(cd), tn, seg_len=SEG,
+                                       hist=0, lazy=True, two_round=True)
+    assert not want_bad["exact"].all()
+    _assert_same(got_bad, want_bad)
+
+    seen = []
+    parse_cost = lz77.lz77_parse_cost
+
+    def counted(*args, **kw):
+        out = parse_cost(*args, **kw)
+        seen.append(bool(out["exact"].all()))
+        return out
+
+    monkeypatch.setattr(lz77, "lz77_parse_cost", counted)
+    hl = np.zeros(1, np.int32)
+    want = _np_dict(ref.analyze2_finish(
+        {k: jnp.asarray(v) for k, v in want_bad.items()}, jd, jn,
+        jnp.asarray(hl), level=6, seg_len=SEG, hist=0))
+    got = lz77.analyze2_finish(got_bad, td, tn, torch.from_numpy(hl), level=6,
+                               seg_len=SEG, hist=0)
+    assert seen == passes
+    assert want["exact"].all()
+    _assert_same(got, want)
+
+
 def test_constants_match_reference():
     for name in ("HIST", "MIN_MATCH", "MAX_MATCH", "TOO_FAR", "HASH_BITS",
-                 "_TRIM_RETRIES", "_FP_SPANS"):
+                 "_TRIM_RETRIES", "_FP_SPANS", "HOT_DIST_BINS", "HOT_DISTS"):
         assert getattr(lz77, name) == getattr(ref, name), name
     assert [f.name for f in dataclasses.fields(lz77.LevelConfig)] == \
         [f.name for f in dataclasses.fields(ref.LevelConfig)]
-    for level, cfg in lz77.LEVELS.items():
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref.LEVELS[level])
-    assert set(lz77.LEVELS) == {1, 2, 3, 4, 100, 101}
-    for level in range(5, 13):
-        assert ref.LEVELS[level].two_round  # the unported rows need round B
-        with pytest.raises(NotImplementedError, match="round B"):
+    assert set(lz77.LEVELS) == set(ref.LEVELS)
+    for level, cfg in ref.LEVELS.items():
+        assert dataclasses.asdict(lz77.LEVELS[level]) == dataclasses.asdict(cfg)
+        assert lz77.level_config(level) == lz77.LEVELS[level]
+    assert cost_cu.NEG_GAIN == cost_pl.NEG_GAIN
+    for level in (0, 13, 99, -1):
+        with pytest.raises(ValueError, match="unknown level"):
             lz77.level_config(level)
 
 
