@@ -21,10 +21,25 @@ Phases, each raising at its first failure:
      each path must be launched in that path's run;
   5. where the time goes: stage walls of three warm level-6 runs (host
      clock, a synchronize around each stage) and one profiled run (device
-     busy share, device time by kernel, the port's kernels' share).
+     busy share, device time by kernel, the port's kernels' share);
+  6. the sharded round trip: sharded_gzip_compress of the corpus at level 6
+     (65 members of 130,560 bytes, splits every 8192 bits) checked against
+     the reference's size and sha256 and by gzip.decompress, then
+     sharded_gzip_decompress of it on the card, which must return the
+     corpus with the decode and CRC kernels launched and no serial
+     fallback; cold and warm walls of both halves and the decode's stage
+     split;
+  7. the decode and CRC kernels against their plain versions on the card:
+     the archive's split rows, one member's rows alone, a fixed-Huffman
+     member, a member with one flipped bit (both must reject its final
+     row), rows starting before and past a body; the CRC chunk registers of the decoded members and of rows of
+     lengths 0, 1, 255, 256, 257 and 130,560.
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches on the level-6 path, errors and times.
-Exits nonzero, with no result, where CUDA is absent.
+the kernels with their launches on the path that uses them (the default
+level-6 gz.compress for the compression kernels, the sharded round trip
+for decode and CRC), errors, times and bounds; "ms" is a CUDA-event loop
+of launches, "device_ms" the kernels' own device time from a profile.  Exits nonzero, with no
+result, where CUDA is absent.
 """
 
 from __future__ import annotations
@@ -45,18 +60,25 @@ EXPECT = {
     4: (2919945, "d95fcf87e22abf3770fa4053470df0cccb4a0db864e7637d3597e72dd8169d09"),
     None: (2854697, "eafff4741db8b10690dc785fcd9e4cbcf5d6dc0eb07cba3c199fe36e754842f4"),
 }
+#: level-6 sharded archive of the 8 MiB corpus by the reference JAX package
+SHARDED_EXPECT = (2920438, "62c7742f29bb8256dd846422c895955fb94149d423b1b6a33f79d12f420941f9")
+#: device-memory rate of an H100 SXM (bytes/s), for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
 #: hot-stride distances for the gain checks' hot lane
 HOT = (8, 16, 32, 64, 128, 216, 512, 1024)
 TIMING_ITERS = 20
 #: the CUDA kernels of csrc/ (device-side names in a profile)
 PORT_KERNELS = ("chunk_exit_kernel", "chunk_hop_kernel", "chunk_refine_kernel",
-                "hist_kernel", "litbits_kernel", "gain_kernel", "slots_kernel")
+                "hist_kernel", "litbits_kernel", "gain_kernel", "slots_kernel",
+                "inflate_rows_kernel", "crc_chunks_kernel")
 #: (C-source, TPU kernel it replaces) per kernel wrapper
 SOURCES = {"mark_path": ("mark_path.cu", "decompress_tpu/ops/parse_pl.py:105"),
            "histograms": ("hist.cu", "decompress_tpu/ops/hist_pl.py:90"),
            "litbits": ("cost.cu", "decompress_tpu/ops/cost_pl.py:246"),
            "gain": ("cost.cu", "decompress_tpu/ops/cost_pl.py:294"),
-           "build_slots": ("pack_slots.cu", "decompress_tpu/ops/pack_pl.py:92")}
+           "build_slots": ("pack_slots.cu", "decompress_tpu/ops/pack_pl.py:92"),
+           "decode": ("inflate.cu", "decompress_tpu/ops/inflate_pl.py:415"),
+           "chunk_registers": ("crc.cu", "decompress_tpu/ops/checksum.py:217")}
 
 
 def card_line() -> str:
@@ -72,9 +94,9 @@ def corpus_bytes() -> bytes:
     return (base * -(-SIZE // len(base)))[:SIZE]
 
 
-def time_ms(torch, fn, iters: int = TIMING_ITERS) -> float:
+def time_ms(torch, fn, iters: int = TIMING_ITERS, warmup: int = 3) -> float:
     """Mean device time of fn() in ms over iters launches (CUDA events)."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -95,6 +117,66 @@ def max_abs_err(torch, got, want) -> int:
         d = (g.to(torch.int64) - w.to(torch.int64)).abs()
         err = max(err, int(d.max()) if d.numel() else 0)
     return err
+
+
+def device_ms(torch, fn, iters: int = TIMING_ITERS) -> float:
+    """Device time of the port's kernels launched by fn(), per call, from
+    a profiler trace: the kernels' own durations without the host's
+    enqueue time, which bounds a CUDA-event loop of small launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(f"::{k}(" in e.name for k in PORT_KERNELS))
+    return us / 1e3 / iters
+
+
+def tensors(args):
+    """The tensors of an argument list, tuples flattened."""
+    out = []
+    for a in args:
+        out.extend(tensors(a) if isinstance(a, (tuple, list)) else
+                   [a] if hasattr(a, "nbytes") else [])
+    return out
+
+
+def bound_ms(args, outputs) -> float:
+    """Least time the card could take: each input tensor read once and
+    each output written once, over the device-memory rate."""
+    moved = sum(t.nbytes for t in tensors(args) + tensors(outputs))
+    return 1e3 * moved / HBM_BYTES_PER_S
+
+
+def check_kernel(torch, name, kernel, plain, cases, norm, library=None, *, card,
+                 plain_iters=TIMING_ITERS) -> dict:
+    """Kernel == plain version (exactly) on every case; times both, and
+    the library call where one computes the same function, on cases[0]."""
+    err = 0
+    for args in cases:
+        got = norm(kernel(*args))
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(torch, got, norm(plain(*args))))
+    if err:
+        raise AssertionError(f"{name}: kernel differs from plain, max |err| = {err}")
+    main_args = cases[0]
+    ms = time_ms(torch, lambda: kernel(*main_args))
+    plain_ms = time_ms(torch, lambda: plain(*main_args), plain_iters,
+                       min(3, plain_iters))
+    library_ms = None if library is None else time_ms(torch, library)
+    stat = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms(main_args, kernel(*main_args)), bound_by="bytes",
+                library_ms=library_ms, device_ms=device_ms(torch, lambda: kernel(*main_args)))
+    lib = "" if library_ms is None else f", library call {library_ms:.4f} ms"
+    print(f"{name}: equal to plain on {len(cases)} cases; kernel {ms:.4f} ms "
+          f"(device {stat['device_ms']:.4f} ms), plain {plain_ms:.4f} ms{lib}, "
+          f"bound {stat['bound_ms']:.4f} ms [{card}]", flush=True)
+    return stat
 
 
 def masked_slots(torch, slots):
@@ -166,6 +248,7 @@ def kernel_checks(torch, dev, arr, card) -> dict:
     def with_length(args, fill):
         return (torch.full_like(length, fill),) + args[1:]
 
+    lit_idx = lit.to(torch.int64)
     checks = {
         "mark_path": (
             parse_cu.mark_path, parse_cu.mark_path_plain,
@@ -179,7 +262,8 @@ def kernel_checks(torch, dev, arr, card) -> dict:
             [hist_args, tail(hist_args)], lambda o: o),
         "litbits": (
             cost_cu.litbits, cost_cu.litbits_plain,
-            [(lit, lc), (lit[:1], lc[:1])], lambda o: (o,)),
+            [(lit, lc), (lit[:1], lc[:1])], lambda o: (o,),
+            lambda: torch.gather(lc, 1, lit_idx)),
         "gain": (
             cost_cu.gain, cost_cu.gain_plain,
             [gain_args, gain_hot, tail(gain_hot), with_length(gain_args, 0),
@@ -189,30 +273,15 @@ def kernel_checks(torch, dev, arr, card) -> dict:
             pack_cu.build_slots, pack_cu.build_slots_plain,
             [slot_args, tail(slot_args)], lambda o: masked_slots(torch, o)),
     }
-    stats = {}
-    for name, (kernel, plain, cases, norm) in checks.items():
-        err = 0
-        for args in cases:
-            got = norm(kernel(*args))
-            torch.cuda.synchronize()
-            err = max(err, max_abs_err(torch, got, norm(plain(*args))))
-        if err:
-            raise AssertionError(f"{name}: kernel differs from plain, "
-                                 f"max |err| = {err}")
-        main_args = cases[0]
-        ms = time_ms(torch, lambda: kernel(*main_args))
-        plain_ms = time_ms(torch, lambda: plain(*main_args))
-        stats[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        print(f"{name}: equal to plain on {len(cases)} cases; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms [{card}]", flush=True)
-    return stats
+    return {name: check_kernel(torch, name, *spec, card=card)
+            for name, spec in checks.items()}
 
 
 def main_path(torch, data: bytes, level, wrappers, card) -> dict:
     """Phase 4 for one level (None = the default): a warm-up run, then a
     run with every launch count set to 0 just before it; checks the
-    bytes and returns the counts."""
-    from decompress_tpu_torch import gz
+    bytes and returns the counts of the named ``wrappers``."""
+    from decompress_tpu_torch import _build, gz
 
     def run():
         torch.cuda.synchronize()
@@ -223,10 +292,9 @@ def main_path(torch, data: bytes, level, wrappers, card) -> dict:
         return out, time.perf_counter() - t
 
     out, cold_s = run()
-    for fn in wrappers.values():
-        fn.launches = 0
+    _build.LAUNCHES.clear()
     out, warm_s = run()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = {name: _build.LAUNCHES[name] for name in wrappers}
     sha = hashlib.sha256(out).hexdigest()
     name = "default level (6)" if level is None else f"level {level}"
     print(f"main path: gz.compress {name} of {len(data)} bytes -> {len(out)} "
@@ -320,6 +388,169 @@ def stage_split(torch, data: bytes, card, runs: int = 3) -> None:
         print(f"  device {us / 1e3:8.3f} ms  {kname[:110]}")
 
 
+def sharded_path(torch, data: bytes, wrappers, card):
+    """Phase 6: the sharded round trip, each half run cold, then warm with
+    every launch count set to 0 just before it; checks the archive against
+    the reference's and the round trip, prints walls and the decode's
+    stage split.  Returns (archive, launches of both warm halves)."""
+    from decompress_tpu_torch import _build
+    from decompress_tpu_torch.ops import checksum, inflate, inflate_cu
+    from decompress_tpu_torch.parallel import sharded
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def compress():
+        return sharded.sharded_gzip_compress(data, 6, device="cuda")
+
+    archive, cold_c = timed(compress)
+    _build.LAUNCHES.clear()
+    archive, warm_c = timed(compress)
+    launches_c = {name: _build.LAUNCHES[name] for name in wrappers}
+    sha = hashlib.sha256(archive).hexdigest()
+    print(f"sharded: sharded_gzip_compress level 6 of {len(data)} bytes -> "
+          f"{len(archive)} bytes sha256 {sha}; launches {launches_c}", flush=True)
+    if (len(archive), sha) != SHARDED_EXPECT:
+        raise AssertionError(f"sharded archive differs from the reference: "
+                             f"{len(archive)} bytes, sha256 {sha}")
+    if gzip.decompress(archive) != data:
+        raise AssertionError("gzip.decompress does not restore the sharded archive")
+
+    stages = {"host plan (decode_plan)": (sharded, "decode_plan"),
+              "staging and tables (stage)": (inflate_cu, "stage"),
+              "decode kernel (decode)": (inflate_cu, "decode"),
+              "compaction (slot_counts_bits)": (inflate, "slot_counts_bits"),
+              "compaction (compact_commands)": (inflate, "compact_commands"),
+              "expansion (expand_commands)": (inflate, "expand_commands"),
+              "CRC (crc32_batch_device)": (checksum, "crc32_batch_device")}
+    spent = dict.fromkeys(stages, 0.0)
+    originals = {label: getattr(mod, attr) for label, (mod, attr) in stages.items()}
+
+    def stage_timer(label, fn):
+        def wrapper(*args, **kw):
+            out, dt = timed(lambda: fn(*args, **kw))
+            spent[label] += dt
+            return out
+        return wrapper
+
+    def decompress():
+        return sharded.sharded_gzip_decompress(archive, device="cuda")
+
+    sharded.serial_fallbacks.clear()
+    out, cold_d = timed(decompress)
+    _build.LAUNCHES.clear()
+    out, warm_d = timed(decompress)
+    launches_d = {name: _build.LAUNCHES[name] for name in wrappers}
+    print(f"sharded: sharded_gzip_decompress -> {len(out)} bytes; launches "
+          f"{launches_d}; serial fallbacks {dict(sharded.serial_fallbacks)}", flush=True)
+    if out != data:
+        raise AssertionError("sharded_gzip_decompress does not restore the input")
+    if sharded.serial_fallbacks:
+        raise AssertionError(f"serial route taken: {dict(sharded.serial_fallbacks)}")
+    missing = [n for n in ("decode", "chunk_registers") if launches_d[n] <= 0]
+    missing += [n for n, c in launches_c.items() if c <= 0 and n != "decode"]
+    if missing:
+        raise AssertionError(f"sharded round trip did not launch {missing}")
+    print(f"sharded wall: compress cold {cold_c:.4f} s, warm {warm_c:.4f} s = "
+          f"{len(data) / warm_c / 1e6:.2f} MB/s; decompress cold {cold_d:.4f} s, "
+          f"warm {warm_d:.4f} s = {len(data) / warm_d / 1e6:.2f} MB/s [{card}]",
+          flush=True)
+
+    for label, (mod, attr) in stages.items():
+        setattr(mod, attr, stage_timer(label, originals[label]))
+    try:
+        for r in range(3):
+            for label in stages:
+                spent[label] = 0.0
+            _, wall = timed(decompress)
+            parts = ", ".join(f"{label} {1e3 * t:.1f} ms" for label, t in spent.items())
+            print(f"decode stages run {r + 1}: wall {1e3 * wall:.1f} ms; {parts} [{card}]",
+                  flush=True)
+    finally:
+        for label, (mod, attr) in stages.items():
+            setattr(mod, attr, originals[label])
+    return archive, {n: launches_c[n] + launches_d[n] for n in wrappers}
+
+
+def decode_crc_checks(torch, dev, data: bytes, archive: bytes, card) -> dict:
+    """Phase 7: the decode and CRC kernels == their plain versions."""
+    import zlib
+
+    import numpy as np
+
+    from decompress_tpu_torch.ops import checksum, crc_cu, inflate, inflate_cu
+    from decompress_tpu_torch.parallel import sharded
+
+    metas, huff, rows, max_cmds = sharded.decode_plan(np.frombuffer(archive, np.uint8))
+
+    def staged(members, flip=False):
+        bodies = [metas[i][1].copy() for i in members]
+        if flip:  # a bit of the first member's end-of-block code
+            bodies[0][-1] ^= 1 << 7 if bodies[0][-1] >> 7 else 1
+        st = inflate_cu.stage(bodies, [metas[i][0][1] for i in members],
+                              [metas[i][0][2] for i in members],
+                              [rows[huff.index(i)] for i in members], dev)
+        return (st["words"], st["tabs"], st["row_ptr"], st["start"], st["stop"], max_cmds)
+
+    fixed_in = data[:20_000]
+    c = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
+    body = np.frombuffer(c.compress(fixed_in) + c.flush(), np.uint8)
+    _, ll, dl, start = inflate.prepare_member(body)
+    st = inflate_cu.stage([body], [ll], [dl], [[(start, 0)]], dev)
+    fixed = (st["words"], st["tabs"], st["row_ptr"], st["start"], st["stop"],
+             len(fixed_in) + 2)
+    # rows starting before and far past a body read only clamped words
+    st = inflate_cu.stage([body] * 2, [ll] * 2, [dl] * 2,
+                          [[(-40, 0)], [(body.size * 8 + 4096, 0)]], dev)
+    clamped = (st["words"], st["tabs"], st["row_ptr"], st["start"], st["stop"], 64)
+    cases = [staged(huff), staged(huff[-1:]), fixed, staged(huff[:1], flip=True), clamped]
+    print(f"decode inputs: {len(huff)} members, {int(cases[0][2][-1])} rows, "
+          f"max_cmds {max_cmds}; fixed member of {len(fixed_in)} bytes", flush=True)
+    if not all(bool(inflate_cu.decode(*args)[1].all()) for args in cases[:3]):
+        raise AssertionError("decode: a valid row was rejected")
+    bad_ok = inflate_cu.decode(*cases[3])[1]
+    if (~bad_ok).nonzero().flatten().tolist() != [len(rows[0]) - 1]:
+        raise AssertionError(f"decode: the flipped member gave ok {bad_ok.tolist()}")
+    stats = {"decode": check_kernel(torch, "decode", inflate_cu.decode,
+                                    inflate_cu.decode_plain, cases, lambda o: o,
+                                    card=card, plain_iters=1)}
+
+    # CRC: the decoded members as the round trip's CRC sees them, and rows
+    # of lengths around the chunk size, all 130,560 bytes wide
+    arr = np.frombuffer(data, np.uint8)
+    seg = 130_560
+    members = np.zeros((len(huff), seg), np.uint8)
+    lengths = np.zeros(len(huff), np.int64)
+    for k in range(len(huff)):
+        part = arr[k * seg:(k + 1) * seg]
+        members[k, :part.size], lengths[k] = part, part.size
+    payload = torch.from_numpy(members).to(dev)
+    main_chunks = checksum.back_aligned(payload, lengths).reshape(-1, checksum.CRC_CHUNK)
+    edge = np.array([0, 1, 255, 256, 257, seg])
+    rows_e = np.zeros((edge.size, seg), np.uint8)
+    for k, n in enumerate(edge):
+        rows_e[k, :n] = arr[:n]
+    rows_e = torch.from_numpy(rows_e).to(dev)
+    crcs = checksum.crc32_batch_device(rows_e, edge)
+    if crcs.tolist() != [zlib.crc32(arr[:n].tobytes()) for n in edge]:
+        raise AssertionError("crc32_batch_device differs from zlib.crc32")
+    edge_chunks = checksum.back_aligned(rows_e, edge).reshape(-1, checksum.CRC_CHUNK)
+    # the library yardstick: the reference's float32 GF(2) product (before
+    # its parity) on the unpacked bits
+    h = torch.from_numpy(checksum._crc_chunk_matrix()).to(dev).to(torch.float32)
+    main_bits = ((main_chunks.to(torch.int32)[:, :, None]
+                  >> torch.arange(8, device=dev, dtype=torch.int32)) & 1).reshape(
+                      main_chunks.shape[0], -1).to(torch.float32)
+    stats["chunk_registers"] = check_kernel(
+        torch, "chunk_registers", crc_cu.chunk_registers, crc_cu.chunk_registers_plain,
+        [(main_chunks,), (edge_chunks,)], lambda o: (o,), lambda: main_bits @ h, card=card)
+    return stats
+
+
 def main() -> int:
     import torch
 
@@ -329,7 +560,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from decompress_tpu_torch import _build, de
-    from decompress_tpu_torch.ops import cost_cu, hist_cu, pack_cu, parse_cu
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -350,16 +580,21 @@ def main() -> int:
     stats = kernel_checks(torch, dev, de._np_u8(data), card)
 
     # ---- 4. the main paths: level 4, then the default level 6 ----
-    wrappers = {"mark_path": parse_cu.mark_path, "histograms": hist_cu.histograms,
-                "build_slots": pack_cu.build_slots}
-    main_path(torch, data, 4, wrappers, card)
-    wrappers = {"mark_path": parse_cu.mark_path, "histograms": hist_cu.histograms,
-                "litbits": cost_cu.litbits, "gain": cost_cu.gain,
-                "build_slots": pack_cu.build_slots}
+    main_path(torch, data, 4, ("mark_path", "histograms", "build_slots"), card)
+    wrappers = ("mark_path", "histograms", "litbits", "gain", "build_slots")
     launches = main_path(torch, data, None, wrappers, card)
 
     # ---- 5. where the time goes ----
     stage_split(torch, data, card)
+
+    # ---- 6. the sharded round trip ----
+    archive, sharded_launches = sharded_path(
+        torch, data, wrappers + ("decode", "chunk_registers"), card)
+    launches.update(decode=sharded_launches["decode"],
+                    chunk_registers=sharded_launches["chunk_registers"])
+
+    # ---- 7. the decode and CRC kernels against their plain versions ----
+    stats.update(decode_crc_checks(torch, dev, data, archive, card))
 
     kernels = [
         dict(name=name, route="cuda",

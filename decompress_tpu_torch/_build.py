@@ -8,7 +8,8 @@ edited source rebuilds and an unchanged one loads at once.
 
 Each C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()`` after its launches; the
-wrappers raise on a nonzero code.
+wrappers pass it to :func:`launched`, which counts the launch in
+:data:`LAUNCHES` under the wrapper's name and raises on a nonzero code.
 
 Run ``python -m decompress_tpu_torch._build`` to build and print the
 library's path.
@@ -16,6 +17,7 @@ library's path.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -41,9 +43,15 @@ _SIGNATURES = {
                         _I, _I, _P),
     "dtt_litbits": (_P, _I, _P, _P, _I, _I, _P),
     "dtt_gain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "dtt_inflate_rows": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _P),
+    "dtt_crc_chunks": (_P, _P, _P, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None
+
+#: kernel launches by wrapper name; only :func:`launched` adds to it
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -150,7 +158,9 @@ def check_rows(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name}: rows must be contiguous and disjoint")
 
 
-def check_launch(name: str, err: int) -> None:
+def launched(name: str, err: int) -> None:
+    """Count one launch of wrapper ``name``; raise if it failed."""
+    LAUNCHES[name] += 1
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 

@@ -6,7 +6,7 @@ reference's, batch by batch in order: device LZ77 analysis of up to
 ``MAX_DEVICE_BATCH`` segments of ``SEGMENT_SIZE`` bytes, each with its
 32 KiB history, with the cost-aware round B at levels 5-12
 (``ops/lz77.py``, ``ops/cost_cu.py``); host block planning and Huffman tables
-(the reference's own ``plan_blocks``); device slot build and bit pack
+(``plan_blocks``, copied from the reference); device slot build and bit pack
 (``ops/pack_cu.py``, ``ops/bitpack.py``); host assembly.  The output is
 byte-identical to the reference's.
 
@@ -17,21 +17,293 @@ on a machine without one raises; nothing falls back.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from decompress_tpu.core import bitstream, huffman, tables
-from decompress_tpu.de import (  # host-only helpers of the reference (no JAX)
-    _HDR_PAD,
-    MAX_DEVICE_BATCH,
-    SEGMENT_SIZE,
-    STRATEGY_LEVELS,
-    _emit_stored,
-    _np_u8,
-    plan_blocks,
+from .core import bitstream, huffman, tables
+from .core.tables import (
+    DIST_EXTRA,
+    EOB,
+    LENGTH_EXTRA,
+    NUM_DIST_SYMS,
+    NUM_LIT_SYMS,
+    PRECODE_ORDER,
 )
-
 from .ops import bitpack, lz77, pack_cu
+
+# ---------------------------------------------------------------------------
+# Host half of the reference's de.py, copied (the port imports nothing of
+# the reference package); tests/test_torch_core.py holds every constant and
+# plan_blocks equal to the reference's.
+# ---------------------------------------------------------------------------
+
+#: payload bytes per device segment: just under 2^17, so the parse domain
+#: pow2(seg + MAX_MATCH + 1) stays 2^17
+SEGMENT_SIZE = (1 << 17) - 512
+#: segments per device batch (the reference reads an environment override;
+#: the port has none)
+MAX_DEVICE_BATCH = 8
+_HDR_PAD = 1024          # padded header slots per segment in the pack call
+#: strategy name -> dedicated LEVELS slot ("fixed" is the dynamic=False knob)
+STRATEGY_LEVELS = {"rle": 100, "huffman_only": 101}
+
+
+class MalformedError(ValueError):
+    """Malformed DEFLATE input."""
+
+
+def _rle_code_lengths(lengths: np.ndarray):
+    """RFC 1951 §3.2.7 code-length RLE: yields (sym, extra_val, extra_bits)."""
+    out = []
+    n = lengths.size
+    i = 0
+    while i < n:
+        v = int(lengths[i])
+        j = i + 1
+        while j < n and int(lengths[j]) == v:
+            j += 1
+        run = j - i
+        if v == 0:
+            while run >= 11:
+                r = min(run, 138)
+                out.append((18, r - 11, 7))
+                run -= r
+            if run >= 3:
+                out.append((17, run - 3, 3))
+                run = 0
+            for _ in range(run):
+                out.append((0, 0, 0))
+        else:
+            out.append((v, 0, 0))
+            run -= 1
+            while run >= 3:
+                r = min(run, 6)
+                out.append((16, r - 3, 2))
+                run -= r
+            for _ in range(run):
+                out.append((v, 0, 0))
+        i = j
+    return out
+
+
+@dataclasses.dataclass
+class DynamicHeader:
+    values: np.ndarray  # uint32 pairs to emit (excluding BFINAL/BTYPE)
+    nbits: np.ndarray
+    bit_length: int
+
+
+def build_dynamic_header(lit_lengths: np.ndarray, dist_lengths: np.ndarray) -> DynamicHeader:
+    """Serialize HLIT/HDIST/HCLEN + precode + RLE'd code lengths."""
+    hlit = max(257, int(np.max(np.nonzero(lit_lengths)[0])) + 1) if np.any(lit_lengths) else 257
+    nz_d = np.nonzero(dist_lengths)[0]
+    hdist = (int(nz_d[-1]) + 1) if nz_d.size else 1
+    seq = np.concatenate([lit_lengths[:hlit], dist_lengths[:hdist]])
+    rle = _rle_code_lengths(seq)
+
+    pre_freq = np.zeros(19, dtype=np.int64)
+    for sym, _, _ in rle:
+        pre_freq[sym] += 1
+    pre_lengths = huffman.code_lengths_from_frequencies(pre_freq, max_length=7)
+    pre_codes = huffman.canonical_codes(pre_lengths)
+
+    order = PRECODE_ORDER
+    hclen = 19
+    while hclen > 4 and pre_lengths[order[hclen - 1]] == 0:
+        hclen -= 1
+
+    values = [hlit - 257, hdist - 1, hclen - 4]
+    nbits = [5, 5, 4]
+    for k in range(hclen):
+        values.append(int(pre_lengths[order[k]]))
+        nbits.append(3)
+    for sym, extra_val, extra_bits in rle:
+        values.append(int(pre_codes[sym]))
+        nbits.append(int(pre_lengths[sym]))
+        if extra_bits:
+            values.append(extra_val)
+            nbits.append(extra_bits)
+    values = np.array(values, dtype=np.uint32)
+    nbits = np.array(nbits, dtype=np.int32)
+    return DynamicHeader(values, nbits, int(nbits.sum()))
+
+
+_FIXED_LIT_BITS = tables.FIXED_LIT_LENGTHS.astype(np.int64)
+_FIXED_DIST_BITS = tables.FIXED_DIST_LENGTHS.astype(np.int64)[:30]
+_LEN_EXTRA_OF_SYM = np.concatenate([np.zeros(257, np.int64), LENGTH_EXTRA.astype(np.int64)])
+_DIST_EXTRA_OF_SYM = DIST_EXTRA.astype(np.int64)
+
+
+def symbol_cost_bits(hist_lit: np.ndarray, hist_dist: np.ndarray,
+                     lit_bits: np.ndarray, dist_bits: np.ndarray) -> int:
+    """Exact bit cost of the symbol section (incl. extra bits, excl. header)."""
+    lit = int(np.sum(hist_lit * (lit_bits[: hist_lit.size].astype(np.int64) + _LEN_EXTRA_OF_SYM[: hist_lit.size])))
+    dst = int(np.sum(hist_dist * (dist_bits[: hist_dist.size].astype(np.int64) + _DIST_EXTRA_OF_SYM[: hist_dist.size])))
+    return lit + dst
+
+
+def stored_cost_bits(n: int, bitpos_in_byte: int) -> int:
+    """Exact stored-block cost: each chunk is a 3-bit header, padding to
+    the next byte boundary, a 32-bit LEN/NLEN word, then the raw bytes;
+    chunks after the first start byte-aligned (5 bits of padding)."""
+    nchunks = max(1, (n + 65534) // 65535)
+    bits = 3 + ((-(bitpos_in_byte + 3)) % 8) + 32
+    bits += (nchunks - 1) * (3 + 5 + 32)
+    return bits + 8 * n
+
+
+def _np_u8(data) -> np.ndarray:
+    if isinstance(data, np.ndarray) and data.dtype == np.uint8:
+        return data
+    return np.frombuffer(bytes(data), dtype=np.uint8)
+
+
+def _emit_stored(w: bitstream.BitWriter, payload: np.ndarray, final: bool) -> None:
+    n = payload.size
+    chunks = [(i, min(i + 65535, n)) for i in range(0, n, 65535)] or [(0, 0)]
+    for ci, (lo, hi) in enumerate(chunks):
+        last = final and ci == len(chunks) - 1
+        w.write(1 if last else 0, 1)
+        w.write(0, 2)
+        w.align_to_byte()
+        ln = hi - lo
+        w.write(ln, 16)
+        w.write(ln ^ 0xFFFF, 16)
+        w.write_bytes(payload[lo:hi])
+
+
+def plan_blocks(hist_lit, hist_dist, n_valid, final_flags, *, pad_to=None,
+                force_block=None, shared_tree=False):
+    """Host planning for a batch of blocks: choose stored/fixed/dynamic
+    per block by exact cost, build the Huffman code tables and the
+    serialized headers for the device packer.
+
+    With ``shared_tree`` the dynamic trees are built once from the
+    row-summed frequencies (or taken from a precomputed ``(lit_len,
+    dist_len, header)`` tuple) and every dynamic block reuses them;
+    per-block stored/fixed fallback still applies.
+
+    Returns ((hdr_vals, hdr_bits), (lit_codes, lit_bits, dist_codes,
+    dist_bits, eob_vals, eob_bits), kinds).
+    """
+    b = hist_lit.shape[0]
+    b_pad = pad_to or b
+    shared = None
+    if shared_tree:
+        if isinstance(shared_tree, tuple):
+            shared = shared_tree  # precomputed (lit_len, dist_len, header)
+        else:
+            hl_sum = hist_lit.astype(np.int64).sum(axis=0)
+            hl_sum[EOB] += b  # one EOB per block
+            hd_sum = hist_dist.astype(np.int64).sum(axis=0)
+            s_lit_len = huffman.code_lengths_from_frequencies(hl_sum)
+            s_dist_len = huffman.code_lengths_from_frequencies(hd_sum)
+            shared = (s_lit_len, s_dist_len,
+                      build_dynamic_header(s_lit_len, s_dist_len))
+    hdr_vals = np.zeros((b_pad, _HDR_PAD), dtype=np.uint32)
+    hdr_bits = np.zeros((b_pad, _HDR_PAD), dtype=np.int32)
+    lit_codes = np.zeros((b_pad, NUM_LIT_SYMS), dtype=np.uint32)
+    lit_bits = np.zeros((b_pad, NUM_LIT_SYMS), dtype=np.int32)
+    dist_codes = np.zeros((b_pad, NUM_DIST_SYMS), dtype=np.uint32)
+    dist_bits = np.zeros((b_pad, NUM_DIST_SYMS), dtype=np.int32)
+    eob_vals = np.zeros((b_pad, 1), dtype=np.uint32)
+    eob_bits = np.zeros((b_pad, 1), dtype=np.int32)
+    kinds = []
+    for i in range(b):
+        final = bool(final_flags[i])
+        hl = hist_lit[i].astype(np.int64)
+        hl[EOB] += 1
+        hd = hist_dist[i].astype(np.int64)
+
+        if shared is not None:
+            dyn_lit_len, dyn_dist_len, header = shared
+        else:
+            dyn_lit_len = huffman.code_lengths_from_frequencies(hl)
+            dyn_dist_len = huffman.code_lengths_from_frequencies(hd)
+            header = build_dynamic_header(dyn_lit_len, dyn_dist_len)
+        cost_dyn = 3 + header.bit_length + symbol_cost_bits(hl, hd, dyn_lit_len, dyn_dist_len)
+        cost_fix = 3 + symbol_cost_bits(hl, hd, _FIXED_LIT_BITS, _FIXED_DIST_BITS)
+        cost_sto = stored_cost_bits(int(n_valid[i]), 0)
+
+        # forbidding dynamic trees does not forbid stored blocks (zlib's
+        # Z_FIXED), or incompressible data would expand
+        cost_packed = cost_fix if force_block == "fixed" else min(cost_dyn, cost_fix)
+        if cost_sto < cost_packed:
+            kinds.append("stored")
+            continue
+        if force_block == "fixed" or (force_block is None and cost_fix <= cost_dyn):
+            kinds.append("fixed")
+            ll, dl = tables.FIXED_LIT_LENGTHS, tables.FIXED_DIST_LENGTHS[:30]
+            pairs = [(1 if final else 0, 1), (1, 2)]
+        else:
+            kinds.append("dynamic")
+            ll, dl = dyn_lit_len, dyn_dist_len
+            pairs = [(1 if final else 0, 1), (2, 2)]
+        lc = huffman.canonical_codes(ll)
+        dc = huffman.canonical_codes(dl)
+        lit_codes[i, : lc.size] = lc[:NUM_LIT_SYMS]
+        lit_bits[i, : lc.size] = ll[:NUM_LIT_SYMS]
+        dist_codes[i] = dc[:NUM_DIST_SYMS]
+        dist_bits[i] = dl[:NUM_DIST_SYMS]
+        eob_vals[i, 0] = lc[EOB]
+        eob_bits[i, 0] = ll[EOB]
+        if kinds[-1] == "dynamic":
+            pairs += list(zip(header.values.tolist(), header.nbits.tolist()))
+        for j, (v, nb) in enumerate(pairs):
+            hdr_vals[i, j] = v
+            hdr_bits[i, j] = nb
+    tabs = (lit_codes, lit_bits, dist_codes, dist_bits, eob_vals, eob_bits)
+    return (hdr_vals, hdr_bits), tabs, kinds
+
+
+def _parse_dynamic_lengths(r: bitstream.BitReader):
+    """Parse a dynamic block header up to the code lengths; returns
+    (lit_lengths, dist_lengths) with the reader positioned at the
+    symbol section."""
+    hlit = r.read(5) + 257
+    hdist = r.read(5) + 1
+    hclen = r.read(4) + 4
+    if hlit > 286 or hdist > 30:
+        raise MalformedError("invalid dictionary")
+    pre = np.zeros(19, dtype=np.int32)
+    for k in range(hclen):
+        pre[int(PRECODE_ORDER[k])] = r.read(3)
+    try:
+        pre_dt = huffman.build_decode_table(pre, huffman.ROOT_BITS_CODES)
+    except huffman.InvalidTree as e:
+        raise MalformedError("invalid dictionary") from e
+    lengths = np.zeros(hlit + hdist, dtype=np.int32)
+    i = 0
+    while i < hlit + hdist:
+        sym, nb = huffman.decode_one(pre_dt, r.peek(15))
+        if sym < 0:
+            raise MalformedError("invalid dictionary")
+        r.consume(nb)
+        if sym < 16:
+            lengths[i] = sym
+            i += 1
+        elif sym == 16:
+            if i == 0:
+                raise MalformedError("invalid dictionary")
+            rep = 3 + r.read(2)
+            lengths[i : i + rep] = lengths[i - 1]
+            i += rep
+        elif sym == 17:
+            i += 3 + r.read(3)
+        else:
+            i += 11 + r.read(7)
+    if i > hlit + hdist:
+        raise MalformedError("invalid dictionary")
+    if lengths[256] == 0:
+        raise MalformedError("invalid dictionary")
+    return lengths[:hlit], lengths[hlit:]
+
+
+# ---------------------------------------------------------------------------
+# One-shot deflate on the card.
+# ---------------------------------------------------------------------------
 
 
 def _resolve_device(device) -> torch.device:
@@ -224,13 +496,17 @@ def _finish_batch(w, arr, seg_lo, b, nseg, seg, n_valid, d_data, res,
 
 
 def pack_segments(res, sym_lit, hdr_vals, hdr_bits, lit_codes, lit_bits,
-                  dist_codes, dist_bits, eob_vals, eob_bits, *, out_words: int):
+                  dist_codes, dist_bits, eob_vals, eob_bits, *, out_words: int,
+                  n_splits: int = 0, split_stride: int = 2048,
+                  split_bits: int = 0):
     """The pack of one batch: slot build, then the plane bit pack.
 
     ``res`` holds the parse arrays (on_path, is_match, length, dist) on
     the device of ``sym_lit`` (uint8[B, seg] payload bytes); the header
     and code tables are plan_blocks' numpy arrays.  Returns
-    (words int64[B, out_words] of uint32 values, total_bits int64[B])."""
+    (words int64[B, out_words] of uint32 values, total_bits int64[B]);
+    with ``n_splits > 1`` also the split points of the member-parallel
+    decoder, as ``(packed, splits)``: see :func:`split_points`."""
     dev = sym_lit.device
 
     def put(a):
@@ -241,7 +517,58 @@ def pack_segments(res, sym_lit, hdr_vals, hdr_bits, lit_codes, lit_bits,
     v01, n01, v23, n23 = pack_cu.build_slots(
         res["on_path"], res["is_match"], res["length"], res["dist"], sym_lit,
         lit_cb, dist_cb)
-    words, total, _, _ = bitpack.pack_slot_planes(
+    words, total, boff, posbits = bitpack.pack_slot_planes(
         v01, n01, v23, n23, put(hdr_vals.astype(np.int64)), put(hdr_bits),
         put(eob_vals.astype(np.int64)), put(eob_bits), out_words)
-    return words, total
+    if n_splits <= 1:
+        return words, total
+    return (words, total), split_points(
+        res["on_path"], res["is_match"], res["length"], boff, posbits,
+        n_splits=n_splits, split_stride=split_stride, split_bits=split_bits)
+
+
+def split_points(on_path, is_match, length, boff, posbits, *, n_splits: int,
+                 split_stride: int, split_bits: int):
+    """The split-point writer (the ``n_splits > 1`` tail of the
+    reference's pack): for each of the ``n_splits - 1`` interior
+    boundaries, the command that owns it — its bit offset in the packed
+    body, its command index and its output offset — plus each member's
+    command count with the EOB.
+
+    With ``split_bits`` boundary j is the command whose bit span contains
+    ``j * split_bits``; otherwise it is the command with exclusive index
+    ``j * split_stride``.  Either key is monotone over positions, so the
+    owner is the last position with ``key <= q_j`` (a binary search; -1
+    when the boundary lies before the first command).  Bit offset 0
+    marks "no split" (real offsets are >= 3 header bits).
+
+    Returns (bits, cmds, outs) int64[B, n_splits - 1] and ncmds int64[B].
+    """
+    on_i = on_path.to(torch.int64)
+    adv = torch.where(on_path, torch.where(is_match, length.to(torch.int64), 1), 0)
+    opos = torch.cumsum(adv, 1) - adv
+    cmdi = torch.cumsum(on_i, 1) - on_i
+    nslots = n_splits - 1
+    qs = torch.arange(1, nslots + 1, device=boff.device, dtype=torch.int64)
+    qs = qs * (split_bits if split_bits else split_stride)
+    key = boff if split_bits else cmdi
+    idx = torch.searchsorted(key.contiguous(),
+                             qs.expand(key.shape[0], nslots).contiguous(),
+                             right=True) - 1
+    safe = torch.clamp(idx, min=0)
+
+    def take(a):
+        return torch.gather(a, 1, safe)
+
+    sel = (idx >= 0) & take(on_path) & (take(cmdi) > 0)
+    if split_bits:
+        # valid iff the found command really contains the boundary
+        sel &= (take(boff) <= qs) & (take(boff) + take(posbits) > qs)
+    else:
+        sel &= take(cmdi) == qs
+
+    def pick(a):
+        return torch.where(sel, take(a), 0)
+
+    ncmds = on_i.sum(1) + 1
+    return pick(boff), pick(cmdi), pick(opos), ncmds

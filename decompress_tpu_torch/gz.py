@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import zlib
 
+import numpy as np
+
 from . import de
 
 _FTEXT, _FHCRC, _FEXTRA, _FNAME, _FCOMMENT = 0x01, 0x02, 0x04, 0x08, 0x10
@@ -24,6 +26,32 @@ def _xfl(level: int) -> int:
     if level <= 2:
         return 4
     return 0
+
+
+def _header_end(buf: np.ndarray):
+    """Offset of the deflate body if the header is complete, else None."""
+    if buf.size < 10:
+        return None
+    flg = int(buf[3])
+    pos = 10
+    if flg & _FEXTRA:
+        if pos + 2 > buf.size:
+            return None
+        xlen = int.from_bytes(buf[pos : pos + 2].tobytes(), "little")
+        pos += 2 + xlen
+        if pos > buf.size:
+            return None
+    for bit in (_FNAME, _FCOMMENT):
+        if flg & bit:
+            zeros = np.flatnonzero(buf[pos:] == 0)
+            if zeros.size == 0:
+                return None
+            pos += int(zeros[0]) + 1
+    if flg & _FHCRC:
+        pos += 2
+        if pos > buf.size:
+            return None
+    return pos
 
 
 def compress(data, level: int = 6, *, mtime: int = 0, os: int = OS_UNIX,

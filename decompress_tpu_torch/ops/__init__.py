@@ -1,2 +1,2 @@
 """Device stages of the port: LZ77 analysis, code arithmetic, the bit
-packer, and the CUDA kernel wrappers (``*_cu``)."""
+packer, member inflate, CRC-32, and the CUDA kernel wrappers (``*_cu``)."""

@@ -1,0 +1,223 @@
+"""CRC-32 on the card: per-chunk registers, then a GF(2) combine tree.
+
+Counterpart of ``decompress_tpu/ops/checksum.py`` (CRC-32 only; Adler-32
+waits for zlib framing).  The CRC register is linear over GF(2) in the
+message bits, so every 256-byte chunk's zero-init register is computed
+independently (``crc_cu.chunk_registers``, the CUDA kernel), and chunk
+pairs are folded by "advance by k zero bytes" matrices, level by level,
+in plain torch as in the reference.  Rows are back-aligned: leading zero
+bytes are no-ops for a zero register, so any length maps onto a
+power-of-two number of chunks; the init and final XOR are a host GF(2)
+correction per row.
+
+The host GF(2) helpers are copies of the reference's (numpy);
+``tests/test_torch_checksum.py`` holds them and every result equal to
+the reference's and to ``zlib.crc32``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import crc_cu
+
+CRC_POLY = 0xEDB88320  # reflected CRC-32 (IEEE), as used by gzip/zlib
+CRC_CHUNK = 256        # bytes per chunk register
+
+# ---------------------------------------------------------------------------
+# Host GF(2) helpers (numpy; copies of the reference's).
+# ---------------------------------------------------------------------------
+
+
+@functools.cache
+def _crc_byte_table() -> np.ndarray:
+    """Classic 256-entry CRC table: T[b] = register after byte b from 0."""
+    t = np.zeros(256, dtype=np.uint64)
+    for b in range(256):
+        c = b
+        for _ in range(8):
+            c = (c >> 1) ^ (CRC_POLY if (c & 1) else 0)
+        t[b] = c
+    return t.astype(np.uint32)
+
+
+def _gf2_matvec(mat: np.ndarray, v: int) -> int:
+    """mat: uint32[32], mat[j] = image of basis bit j. Returns mat·v."""
+    r = 0
+    j = 0
+    while v:
+        if v & 1:
+            r ^= int(mat[j])
+        v >>= 1
+        j += 1
+    return r
+
+
+def _gf2_matmul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """(a·b)[j] = a · (b[j])."""
+    return np.array([_gf2_matvec(a, int(col)) for col in b], dtype=np.uint32)
+
+
+@functools.cache
+def _crc_shift_one_byte() -> np.ndarray:
+    """M1: register advance by one zero byte, v -> (v>>8) ^ T[v & 0xFF]."""
+    t = _crc_byte_table()
+    cols = []
+    for j in range(32):
+        v = 1 << j
+        cols.append(((v >> 8) ^ int(t[v & 0xFF])) & 0xFFFFFFFF)
+    return np.array(cols, dtype=np.uint32)
+
+
+@functools.cache
+def _crc_shift_pow2(k: int) -> np.ndarray:
+    """M1^(2^k): register advance by 2^k zero bytes."""
+    if k == 0:
+        return _crc_shift_one_byte()
+    m = _crc_shift_pow2(k - 1)
+    return _gf2_matmul(m, m)
+
+
+def crc_advance(crc_reg: int, nbytes: int) -> int:
+    """Advance a raw CRC register by ``nbytes`` zero bytes (host scalar)."""
+    k = 0
+    while nbytes:
+        if nbytes & 1:
+            crc_reg = _gf2_matvec(_crc_shift_pow2(k), crc_reg)
+        nbytes >>= 1
+        k += 1
+    return crc_reg
+
+
+def crc_advance_batch(regs: np.ndarray, nbytes: np.ndarray) -> np.ndarray:
+    """Vectorized :func:`crc_advance`: row i's register advanced by
+    ``nbytes[i]`` zero bytes, one 32x32 GF(2) matrix per length bit."""
+    regs = np.asarray(regs, np.uint64).copy()
+    nbytes = np.asarray(nbytes, np.int64)
+    if regs.size == 0:
+        return regs.astype(np.uint32)
+    maxn = int(nbytes.max())
+    k = 0
+    while (1 << k) <= maxn:
+        if int(((nbytes >> k) & 1).max()):
+            mat = _crc_shift_pow2(k).astype(np.uint64)
+            out = np.zeros_like(regs)
+            for j in range(32):
+                out ^= np.where((regs >> np.uint64(j)) & np.uint64(1),
+                                mat[j], np.uint64(0))
+            regs = np.where((nbytes >> k) & 1 == 1, out, regs)
+        k += 1
+    return regs.astype(np.uint32)
+
+
+@functools.cache
+def _crc_chunk_matrix(chunk: int = CRC_CHUNK) -> np.ndarray:
+    """H: int8[8*chunk, 32]; register contribution of a zero-init chunk is
+    bits(chunk_bytes) @ H (mod 2), bit j of byte i at row 8*i+j."""
+    t = _crc_byte_table()
+    h = np.zeros((8 * chunk, 32), dtype=np.int8)
+    # contribution of byte i, bit j: advance T[1<<j] by (chunk-1-i) zero bytes
+    for i in range(chunk):
+        for j in range(8):
+            reg = crc_advance(int(t[1 << j]), chunk - 1 - i)
+            h[8 * i + j] = (reg >> np.arange(32)) & 1
+    return h
+
+
+@functools.cache
+def _crc_level_matrix(level: int, chunk: int = CRC_CHUNK) -> np.ndarray:
+    """Bit matrix (int8[32,32]) advancing a register by chunk·2^level zero
+    bytes: row j = bits of M^(chunk·2^level) e_j."""
+    n = chunk << level
+    cols = np.array([crc_advance(1 << j, n) for j in range(32)], dtype=np.uint64)
+    return ((cols[:, None] >> np.arange(32, dtype=np.uint64)[None, :]) & 1).astype(np.int8)
+
+
+def _padded_len(n: int) -> int:
+    """Bytes of the back-aligned buffer for n bytes: a power-of-two
+    number of chunks."""
+    return CRC_CHUNK << max((n + CRC_CHUNK - 1) // CRC_CHUNK - 1, 0).bit_length()
+
+
+# ---------------------------------------------------------------------------
+# Device CRC.
+# ---------------------------------------------------------------------------
+
+
+def _combine_tree(partial: torch.Tensor) -> torch.Tensor:
+    """Fold chunk registers int32[M, n, 32] (n a power of two) pairwise:
+    the left half is advanced by the right half's byte count (one 32x32
+    GF(2) matrix per level, a float32 product of exact small counts)
+    and XORed into it.  Returns register bits int32[M, 32]."""
+    level = 0
+    while partial.shape[1] > 1:
+        mat = torch.from_numpy(_crc_level_matrix(level)).to(partial.device)
+        left = partial[:, 0::2].to(torch.float32)
+        adv = (left @ mat.to(torch.float32)).to(torch.int32) & 1
+        partial = adv ^ partial[:, 1::2]
+        level += 1
+    return partial[:, 0]
+
+
+def _registers(rows: torch.Tensor) -> np.ndarray:
+    """Zero-init CRC registers of back-aligned uint8[M, P] rows (P a
+    power-of-two multiple of CRC_CHUNK), as uint64 numpy."""
+    m, p = rows.shape
+    bits = crc_cu.chunk_registers(rows.reshape(-1, CRC_CHUNK))
+    reg_bits = _combine_tree(bits.reshape(m, p // CRC_CHUNK, 32))
+    weights = torch.ones(32, dtype=torch.int64, device=rows.device) << torch.arange(
+        32, device=rows.device)
+    return (reg_bits.to(torch.int64) * weights).sum(1).cpu().numpy().astype(np.uint64)
+
+
+def _finish(regs: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """CRC-32 values from zero-init registers: fold in the all-ones
+    init register, advanced past each row's bytes, and the final XOR."""
+    init = crc_advance_batch(np.full(regs.size, 0xFFFFFFFF, np.uint64), lengths)
+    out = (init.astype(np.uint64) ^ regs ^ np.uint64(0xFFFFFFFF)) & np.uint64(0xFFFFFFFF)
+    return np.where(lengths == 0, 0, out).astype(np.uint32)
+
+
+def back_aligned(data_2d: torch.Tensor, lengths: np.ndarray) -> torch.Tensor:
+    """uint8[M, P] rows, P a power-of-two multiple of CRC_CHUNK, holding
+    row i's first ``lengths[i]`` bytes at their end: the reference's
+    zero-prefixed buffer rolled by ``L - lengths[i]``, so bytes at and past
+    ``lengths[i]`` wrap into the prefix and MUST be zero."""
+    m, l = data_2d.shape
+    p = _padded_len(l)
+    dev = data_2d.device
+    # rolled[i, j] = padded[i, (j - (l - len_i)) mod p], where padded holds
+    # the row's l bytes at its end
+    shift = torch.from_numpy(l - np.asarray(lengths, np.int64)).to(dev)
+    col = torch.remainder(torch.arange(p, device=dev)[None, :] - shift[:, None], p)
+    col = col - (p - l)
+    rolled = torch.gather(data_2d, 1, col.clamp(0, l - 1))
+    return torch.where(col >= 0, rolled, 0)
+
+
+def crc32_batch_device(data_2d: torch.Tensor, lengths) -> np.ndarray:
+    """CRC-32 of each row's first ``lengths[i]`` bytes of a uint8[M, L]
+    tensor, on its device; uint32[M] numpy.  Bytes at and past
+    ``lengths[i]`` MUST be zero (see :func:`back_aligned`); decoded
+    payloads and member batches satisfy this."""
+    lengths = np.asarray(lengths, np.int64)
+    return _finish(_registers(back_aligned(data_2d, lengths)), lengths)
+
+
+def crc32(data, value: int = 0, *, device="cuda") -> int:
+    """CRC-32 of ``data`` on ``device``; drop-in for ``zlib.crc32``."""
+    arr = np.frombuffer(bytes(data), dtype=np.uint8) if isinstance(
+        data, (bytes, bytearray, memoryview)) else np.asarray(data, dtype=np.uint8)
+    n = arr.size
+    if n == 0:
+        return value
+    p = _padded_len(n)
+    padded = np.zeros((1, p), dtype=np.uint8)
+    padded[0, p - n:] = arr
+    reg = int(_registers(torch.from_numpy(padded).to(device))[0])
+    # fold in init/xorout (and a previous running crc as initial register)
+    init = (value ^ 0xFFFFFFFF) & 0xFFFFFFFF
+    return (crc_advance(init, n) ^ reg ^ 0xFFFFFFFF) & 0xFFFFFFFF

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from decompress_tpu.core.tables import NUM_DIST_SYMS, NUM_LIT_SYMS
+from ..core.tables import NUM_DIST_SYMS, NUM_LIT_SYMS
 
 from .. import _build
 from . import codes
@@ -57,12 +57,8 @@ def litbits(lit, lcost):
     err = _build.lib().dtt_litbits(lit.data_ptr(), lit.stride(0),
                                    lcost.data_ptr(), out.data_ptr(), b, t,
                                    _build.stream(lit))
-    litbits.launches += 1
-    _build.check_launch("litbits", err)
+    _build.launched("litbits", err)
     return out
-
-
-litbits.launches = 0
 
 
 def _gain_plain(length, dist, pref, lcost, dcost):
@@ -117,9 +113,5 @@ def gain(length, dist, hot_len, hot_dist, pref, lcost, dcost):
         None if hot_dist is None else hot_dist.data_ptr(),
         pref.data_ptr(), lcost.data_ptr(), dcost.data_ptr(),
         *(o.data_ptr() for o in out), b, t, _build.stream(length))
-    gain.launches += 1
-    _build.check_launch("gain", err)
+    _build.launched("gain", err)
     return tuple(out)
-
-
-gain.launches = 0

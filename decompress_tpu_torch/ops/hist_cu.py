@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from decompress_tpu.core.tables import NUM_DIST_SYMS, NUM_LIT_SYMS
+from ..core.tables import NUM_DIST_SYMS, NUM_LIT_SYMS
 
 from .. import _build
 from . import codes
@@ -52,9 +52,5 @@ def histograms(on_path, is_match, length, dist, lit):
         on_path.data_ptr(), is_match.data_ptr(), length.data_ptr(),
         dist.data_ptr(), lit.data_ptr(), lit.stride(0), hl.data_ptr(),
         hd.data_ptr(), b, t, _build.stream(length))
-    histograms.launches += 1
-    _build.check_launch("histograms", err)
+    _build.launched("histograms", err)
     return hl, hd
-
-
-histograms.launches = 0

@@ -37,7 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from decompress_tpu.core import huffman, tables
+from ..core import huffman, tables
 
 from . import cost_cu, hist_cu, parse_cu
 

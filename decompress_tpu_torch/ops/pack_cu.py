@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from decompress_tpu.core.tables import NUM_DIST_SYMS, NUM_LIT_SYMS
+from ..core.tables import NUM_DIST_SYMS, NUM_LIT_SYMS
 
 from .. import _build
 from . import codes
@@ -63,9 +63,5 @@ def build_slots(on_path, is_match, length, dist, sym_lit, lit_cb, dist_cb):
         dist.data_ptr(), sym_lit.data_ptr(), sym_lit.stride(0),
         lit_cb.data_ptr(), dist_cb.data_ptr(), *(o.data_ptr() for o in out),
         b, t, _build.stream(length))
-    build_slots.launches += 1
-    _build.check_launch("build_slots", err)
+    _build.launched("build_slots", err)
     return tuple(out)
-
-
-build_slots.launches = 0

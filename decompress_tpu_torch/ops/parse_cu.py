@@ -63,9 +63,5 @@ def mark_path(g: torch.Tensor) -> torch.Tensor:
     err = _build.lib().dtt_mark_path(
         g.data_ptr(), exits.data_ptr(), entries.data_ptr(),
         on_path.data_ptr(), b, p, chunk_log, _build.stream(g))
-    mark_path.launches += 1
-    _build.check_launch("mark_path", err)
+    _build.launched("mark_path", err)
     return on_path.view(torch.bool)
-
-
-mark_path.launches = 0

@@ -1,0 +1,7 @@
+"""The member-parallel gzip archive (counterpart of
+``decompress_tpu/parallel``, one device)."""
+
+from .sharded import (  # noqa: F401
+    sharded_gzip_compress,
+    sharded_gzip_decompress,
+)

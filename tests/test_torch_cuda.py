@@ -10,18 +10,24 @@ Random and extreme inputs, odd shapes (P below one 1024-position chunk,
 batches of 1 and 9 rows, strided payload rows, matches running into the
 row end, with and without the hot lane); exact equality (integer
 kernels), slot values compared under their n-bit masks; gzip on the card
-at levels 1, 4, 6 and 9 equal to the CPU port.
+at levels 1, 4, 6 and 9 equal to the CPU port.  The decode kernel against
+its plain version on archive rows (dynamic, stored, zero-run and fixed
+members, a flipped bit), the CRC kernel on chunks of member batches at
+lengths around the 256-byte chunk, and the sharded round trip on the card.
 """
 
 import gzip
 import pathlib
+import zlib
 
 import numpy as np
 import pytest
 import torch
 
-from decompress_tpu_torch import gz
-from decompress_tpu_torch.ops import cost_cu, hist_cu, pack_cu, parse_cu
+from decompress_tpu_torch import _build, gz
+from decompress_tpu_torch.ops import (checksum, cost_cu, crc_cu, hist_cu, inflate,
+                                      inflate_cu, pack_cu, parse_cu)
+from decompress_tpu_torch.parallel import sharded
 
 pytestmark = pytest.mark.cuda
 CORPUS = pathlib.Path(__file__).parent / "corpus"
@@ -45,10 +51,10 @@ def _jumps(rng, b, p, seg_len, take_p=0.3):
                                          (1 << 17, 130560, 3)])
 def test_mark_path_kernel(dev, p, seg_len, b):
     g = torch.from_numpy(_jumps(np.random.default_rng(p), b, p, seg_len)).to(dev)
-    before = parse_cu.mark_path.launches
+    before = _build.LAUNCHES["mark_path"]
     got = parse_cu.mark_path(g)
     torch.cuda.synchronize()
-    assert parse_cu.mark_path.launches == before + 1
+    assert _build.LAUNCHES["mark_path"] == before + 1
     assert torch.equal(got, parse_cu.mark_path_plain(g))
 
 
@@ -102,10 +108,10 @@ def test_litbits_kernel(dev, b, t):
     rng = np.random.default_rng(t + 2)
     batch = torch.from_numpy(rng.integers(0, 256, (b, 64 + t), dtype=np.uint8)).to(dev)
     lcost = torch.from_numpy(rng.integers(1, 16, (b, 286)).astype(np.int32)).to(dev)
-    before = cost_cu.litbits.launches
+    before = _build.LAUNCHES["litbits"]
     got = cost_cu.litbits(batch[:, 64:], lcost)
     torch.cuda.synchronize()
-    assert cost_cu.litbits.launches == before + 1
+    assert _build.LAUNCHES["litbits"] == before + 1
     assert torch.equal(got, cost_cu.litbits_plain(batch[:, 64:], lcost))
 
 
@@ -126,10 +132,10 @@ def test_gain_kernel(dev, b, t, hot):
     hl = hd = None
     if hot:
         hl, hd = put(rng.integers(0, 259, (b, t))), put(rng.integers(1, 32769, (b, t)))
-    before = cost_cu.gain.launches
+    before = _build.LAUNCHES["gain"]
     got = cost_cu.gain(length, dist, hl, hd, pref, lcost, dcost)
     torch.cuda.synchronize()
-    assert cost_cu.gain.launches == before + 1
+    assert _build.LAUNCHES["gain"] == before + 1
     want = cost_cu.gain_plain(length, dist, hl, hd, pref, lcost, dcost)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -154,3 +160,86 @@ def test_gzip_on_card_matches_cpu(dev, level):
     out = gz.compress(x, level=level, segment_size=4096, device="cuda")
     assert out == gz.compress(x, level=level, segment_size=4096, device="cpu")
     assert gzip.decompress(out) == x
+
+
+def _archive_rows(dev, data, member_size, flip=False):
+    """Staged decode rows of the port's level-6 archive of ``data``; with
+    ``flip``, one bit of the first member's end-of-block code flipped."""
+    buf = np.frombuffer(sharded.sharded_gzip_compress(
+        data, 6, member_size=member_size, device="cpu"), np.uint8)
+    metas, huff, rows, max_cmds = sharded.decode_plan(buf)
+    bodies = [metas[i][1].copy() for i in huff]
+    if flip:
+        bodies[0][-1] ^= 1 << 7 if bodies[0][-1] >> 7 else 1
+    st = inflate_cu.stage(bodies, [metas[i][0][1] for i in huff],
+                          [metas[i][0][2] for i in huff], rows, dev)
+    return st, max_cmds
+
+
+def _decode_both(st, max_cmds):
+    args = (st["words"], st["tabs"], st["row_ptr"], st["start"], st["stop"], max_cmds)
+    before = _build.LAUNCHES["decode"]
+    got = inflate_cu.decode(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode"] == before + 1
+    want = inflate_cu.decode_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("member_size", [4096, 130560])
+def test_decode_kernel(dev, member_size):
+    rng = np.random.default_rng(member_size)
+    x = (CORPUS / "book1").read_bytes()[:300_000]
+    x += rng.integers(0, 256, member_size, np.uint8).tobytes() + bytes(70_000)
+    st, max_cmds = _archive_rows(dev, x, member_size)
+    cmds, ok, ncmds = _decode_both(st, max_cmds)
+    assert ok.all() and st["row_ptr"][-1] > st["row_ptr"].numel()
+    assert torch.equal(ncmds, inflate.slot_counts_bits(cmds >> 26, st["stop"]))
+    # the first member's final row decodes on into the zero padding
+    st, max_cmds = _archive_rows(dev, x, member_size, flip=True)
+    _, ok_bad, _ = _decode_both(st, max_cmds)
+    last = int(st["row_ptr"][1]) - 1
+    assert (~ok_bad).nonzero().flatten().tolist() == [last]
+
+
+def test_decode_kernel_fixed_member(dev):
+    x = (CORPUS / "paper1").read_bytes()[:3000]
+    c = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
+    body = np.frombuffer(c.compress(x) + c.flush(), np.uint8)
+    _, ll, dl, start = inflate.prepare_member(body)
+    st = inflate_cu.stage([body], [ll], [dl], [[(start, 0)]], dev)
+    cmds, ok, ncmds = _decode_both(st, len(x) + 2)
+    assert ok.all() and int(ncmds[0]) <= len(x) + 1
+    # rows starting before and far past the body read only clamped words
+    st = inflate_cu.stage([body, body], [ll] * 2, [dl] * 2,
+                          [[(-40, 0)], [(body.size * 8 + 4096, 0)]], dev)
+    _decode_both(st, 64)
+
+
+@pytest.mark.parametrize("width", [300, 130560])
+def test_crc_kernel(dev, width):
+    rng = np.random.default_rng(width)
+    lengths = np.array([0, 1, 255, 256, 257, width])
+    data = np.zeros((lengths.size, width), np.uint8)
+    for i, n in enumerate(lengths):
+        data[i, :n] = rng.integers(0, 256, n, dtype=np.uint8)
+    chunks = torch.from_numpy(data).to(dev)[:, : width // 256 * 256].reshape(-1, 256)
+    before = _build.LAUNCHES["chunk_registers"]
+    got = crc_cu.chunk_registers(chunks.contiguous())
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["chunk_registers"] == before + 1
+    assert torch.equal(got, crc_cu.chunk_registers_plain(chunks))
+    crcs = checksum.crc32_batch_device(torch.from_numpy(data).to(dev), lengths)
+    assert crcs.tolist() == [zlib.crc32(data[i, :n].tobytes()) for i, n in enumerate(lengths)]
+
+
+def test_sharded_round_trip_on_card(dev):
+    sharded.serial_fallbacks.clear()
+    x = (CORPUS / "book1").read_bytes()[:200_000] + bytes(50_000)
+    arch = sharded.sharded_gzip_compress(x, member_size=65536, device="cuda")
+    assert arch == sharded.sharded_gzip_compress(x, member_size=65536, device="cpu")
+    assert gzip.decompress(arch) == x
+    assert sharded.sharded_gzip_decompress(arch, device="cuda") == x
+    assert not sharded.serial_fallbacks

@@ -1,9 +1,12 @@
-"""The port never imports JAX: with ``jax`` made unimportable, importing
-``decompress_tpu_torch`` and compressing 10 KB on the CPU at levels 4
-and 6 (round B) still works
-(the machine with the card has no JAX)."""
+"""The port never imports JAX or the reference package: with ``jax`` and
+``decompress_tpu`` made unimportable, importing ``decompress_tpu_torch``,
+compressing 10 KB on the CPU at levels 4 and 6 (round B) and a sharded
+archive's round trip still work (the machine with the card has no JAX);
+and no source file of the port, nor ``chip_smoke.py``, has an import line
+of the reference package."""
 
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -13,16 +16,23 @@ _SCRIPT = """
 import gzip, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["jaxlib"] = None
+sys.modules["decompress_tpu"] = None  # nor the reference package
 import decompress_tpu_torch
 from decompress_tpu_torch import _build, gz
-from decompress_tpu_torch.ops import (bitpack, codes, cost_cu, hist_cu, lz77,
+from decompress_tpu_torch.ops import (bitpack, checksum, codes, cost_cu, crc_cu,
+                                      hist_cu, inflate, inflate_cu, lz77,
                                       pack_cu, parse_cu)
+from decompress_tpu_torch.parallel import sharded
 x = open("tests/corpus/paper1", "rb").read()[:10_000]
 out = gz.compress(x, level=4, segment_size=4096, device="cpu")
 assert gzip.decompress(out) == x
 out = gz.compress(x, segment_size=4096, device="cpu")  # level 6, round B
 assert gzip.decompress(out) == x
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+arch = sharded.sharded_gzip_compress(x, member_size=4096, device="cpu")
+assert gzip.decompress(arch) == x
+assert sharded.sharded_gzip_decompress(arch, device="cpu") == x
+assert not sharded.serial_fallbacks
+assert not any(m.split(".")[0] in ("jax", "decompress_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("ok", len(out))
 """
@@ -33,3 +43,16 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok ")
+
+
+_REFERENCE_IMPORT = re.compile(r"^\s*(import|from)\s+decompress_tpu(\.|\s|$)", re.M)
+
+
+def test_no_reference_import_lines():
+    files = sorted((ROOT / "decompress_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [str(p.relative_to(ROOT)) for p in files
+                 if _REFERENCE_IMPORT.search(p.read_text())]
+    assert offenders == []
+    assert _REFERENCE_IMPORT.search("from decompress_tpu.core import tables\n")
+    assert not _REFERENCE_IMPORT.search("from decompress_tpu_torch import gz\n")

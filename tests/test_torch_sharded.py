@@ -1,0 +1,232 @@
+"""The sharded gzip archive: the port (``decompress_tpu_torch.parallel``,
+plain PyTorch versions of the kernels on the CPU) against the reference
+(``decompress_tpu.parallel``, JAX on the CPU).
+
+* archives byte-identical to the reference's at levels 4 and 6, with
+  ``SPLIT_BITS`` 4096 and the default 8192, and with ``shared_tree``, on
+  an input with a stored (random) member, a run of zeros and a short
+  tail member; ``gzip.decompress`` restores each;
+* the stage arrays on the way: round A and round B at ``hist = 0``, the
+  bit offsets ``off0``/``posbits`` of the plane pack and the split-point
+  arrays (bit and command strides) equal the reference's;
+* ``_read_index_ex`` reads both index kinds as the reference does;
+* ``sharded_gzip_decompress`` restores the port's and the reference's
+  archives with the serial route poisoned; an unindexed archive, a
+  legacy command-stride index, split bits past the members' bodies and a
+  member with a reserved block type take the serial route and are counted
+  in ``serial_fallbacks``; a row the decode rejects and a corrupt member
+  CRC raise without it.
+"""
+
+import gzip
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from decompress_tpu import de as ref_de
+from decompress_tpu.ops import bitpack as ref_bitpack
+from decompress_tpu.ops import lz77 as ref_lz77
+from decompress_tpu.parallel import sharded as ref
+from decompress_tpu_torch import de, gz
+from decompress_tpu_torch.ops import bitpack, lz77
+from decompress_tpu_torch.parallel import sharded
+
+MEMBER = 4096
+
+
+def _payload():
+    rng = np.random.default_rng(11)
+    text = open(__file__, "rb").read()
+    return (text[:9000] + rng.integers(0, 256, MEMBER, np.uint8).tobytes()
+            + bytes(6000) + text[:1500])
+
+
+PAYLOAD = _payload()
+_ARCHIVES = {}
+
+
+def _pair(level, split_bits=ref.SPLIT_BITS, shared_tree=False, **kw):
+    """(port archive, reference archive) with the split stride patched in
+    both modules, cached per arguments."""
+    key = (level, split_bits, shared_tree, tuple(sorted(kw.items())))
+    if key not in _ARCHIVES:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ref, "SPLIT_BITS", split_bits)
+            mp.setattr(sharded, "SPLIT_BITS", split_bits)
+            _ARCHIVES[key] = (
+                sharded.sharded_gzip_compress(PAYLOAD, level, member_size=MEMBER,
+                                              shared_tree=shared_tree, device="cpu", **kw),
+                ref.sharded_gzip_compress(PAYLOAD, level, member_size=MEMBER,
+                                          shared_tree=shared_tree, **kw))
+    return _ARCHIVES[key]
+
+
+def test_constants_match_reference():
+    for name in ("N_SPLITS", "SPLIT_STRIDE", "SPLIT_BITS", "INDEX_ID", "SPLIT_ID",
+                 "TBITS_ID"):
+        assert getattr(sharded, name) == getattr(ref, name), name
+
+
+@pytest.mark.parametrize("split_bits", [4096, 8192])
+@pytest.mark.parametrize("level", [4, 6])
+def test_archive_matches_reference(level, split_bits):
+    got, want = _pair(level, split_bits)
+    assert got == want
+    assert gzip.decompress(got) == PAYLOAD
+    sizes, splits, tb = sharded._read_index_ex(np.frombuffer(got, np.uint8))
+    assert len(sizes) == 6 and tb["bits"] == split_bits
+    assert sum(map(len, splits)) > 0
+
+
+def test_shared_tree_archive_matches_reference():
+    got, want = _pair(6, shared_tree=True)
+    assert got == want
+    assert gzip.decompress(got) == PAYLOAD
+
+
+def test_empty_and_unindexed_match_reference():
+    assert sharded.sharded_gzip_compress(b"", device="cpu") == ref.sharded_gzip_compress(b"")
+    got, want = _pair(4, index=False, mtime=7)
+    assert got == want
+
+
+def _member_batch():
+    data, n_valid = sharded._batched_members(np.frombuffer(PAYLOAD, np.uint8), MEMBER, 0)
+    assert np.array_equal(data, ref._batched_members(
+        np.frombuffer(PAYLOAD, np.uint8), MEMBER, 0)[0])
+    return data[:4], n_valid[:4]
+
+
+def test_hist0_analysis_matches_reference():
+    """Rounds A and B of the level-6 member batch, with no history."""
+    data, n_valid = _member_batch()
+    hl = np.zeros(4, np.int32)
+    want = ref_lz77.analyze2(jnp.asarray(data), jnp.asarray(n_valid), jnp.asarray(hl),
+                             level=6, seg_len=MEMBER, hist=0)
+    td, tn, th = (torch.from_numpy(a) for a in (data, n_valid, hl))
+    got = lz77.lz77_analyze(td, tn, th, level=6, seg_len=MEMBER, hist=0)
+    got = lz77.analyze2_finish(got, td, tn, th, level=6, seg_len=MEMBER, hist=0)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("split_bits,split_stride", [(1024, 2048), (0, 64)])
+def test_split_points_match_reference(split_bits, split_stride):
+    """The pack's words, totals and split arrays, and the plane pack's
+    off0/posbits (the reference's boff/posbits), from the reference's
+    own level-6 analysis of the member batch."""
+    data, n_valid = _member_batch()
+    res = ref_lz77.analyze2(jnp.asarray(data), jnp.asarray(n_valid),
+                            jnp.asarray(np.zeros(4, np.int32)), level=6,
+                            seg_len=MEMBER, hist=0)
+    (hv, hb), tabs, kinds = ref_de.plan_blocks(
+        np.asarray(res["hist_lit"]), np.asarray(res["hist_dist"]), n_valid,
+        np.ones(4, bool))
+    assert kinds.count("dynamic") >= 2
+    out_words = (9 * MEMBER) // 32 + 2 * ref_de._HDR_PAD
+    (w_words, w_totals), w_splits = ref_de._pack_segments(
+        res, jnp.asarray(data), jnp.asarray(hv), jnp.asarray(hb), *tabs, out_words,
+        n_splits=ref.N_SPLITS, split_stride=split_stride, split_bits=split_bits)
+    tres = lz77.state_from_numpy(res, "cpu")
+    (words, totals), splits = de.pack_segments(
+        tres, torch.from_numpy(data), hv, hb, *tabs, out_words=out_words,
+        n_splits=ref.N_SPLITS, split_stride=split_stride, split_bits=split_bits)
+    np.testing.assert_array_equal(words.numpy(), np.asarray(w_words))
+    np.testing.assert_array_equal(totals.numpy(), np.asarray(w_totals))
+    for g, w in zip(splits, w_splits):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (splits[0] > 0).sum() >= 4  # boundaries really resolved
+
+    # the plane pack's per-position bit offsets feed the split writer
+    v01, n01, v23, n23 = (np.array(a) for a in (
+        res["length"], res["length"] % 7, res["dist"], res["dist"] % 11))
+    hdr = (hv.astype(np.int64), hb)
+    eob = (np.ones((4, 1), np.int64), np.full((4, 1), 7, np.int32))
+    got = bitpack.pack_slot_planes(
+        *(torch.from_numpy(a) for a in (v01, n01, v23, n23, *hdr, *eob)), out_words)
+    want = ref_bitpack.pack_slot_planes(
+        *(jnp.asarray(a) for a in (v01.astype(np.uint32), n01, v23.astype(np.uint32),
+                                   n23, hdr[0].astype(np.uint32), hdr[1],
+                                   eob[0].astype(np.uint32), eob[1])), out_words)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w).astype(np.int64))
+
+
+def test_read_index_matches_reference():
+    tb_arch = _pair(6)[0]
+    ts_arch = _pair(6, split_bits=0)[1]  # the reference's legacy TS index
+    for arch in (tb_arch, ts_arch, _pair(4, index=False, mtime=7)[0]):
+        buf = np.frombuffer(arch, np.uint8)
+        assert sharded._read_index_ex(buf) == ref._read_index_ex(buf)
+    assert sharded._read_index_ex(np.frombuffer(ts_arch, np.uint8))[2] is None
+    with pytest.raises(de.MalformedError):
+        sharded._read_index_ex(np.zeros(20, np.uint8))
+
+
+@pytest.fixture
+def no_serial(monkeypatch):
+    sharded.serial_fallbacks.clear()
+    monkeypatch.setattr(sharded, "_serial", lambda buf, reason: pytest.fail(
+        f"serial route taken: {reason}"))
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["port", "reference"])
+@pytest.mark.parametrize("level,split_bits", [(4, 4096), (6, 8192)])
+def test_decompress_round_trip(no_serial, level, split_bits, which):
+    arch = _pair(level, split_bits)[which]
+    assert sharded.sharded_gzip_decompress(arch, device="cpu") == PAYLOAD
+    assert not sharded.serial_fallbacks
+
+
+def _with_tb(stride: int | None = None, max_cmds: int | None = None) -> bytes:
+    """The level-6 port archive with its TB split stride, or every
+    member's recorded command capacity, replaced."""
+    arch = bytearray(_pair(6)[0])
+    tb = 16 + int.from_bytes(arch[14:16], "little")  # after the TZ subfield
+    assert arch[tb: tb + 2] == b"TB"
+    if stride is not None:
+        arch[tb + 4: tb + 8] = stride.to_bytes(4, "little")
+    j, end = tb + 8, tb + 4 + int.from_bytes(arch[tb + 2: tb + 4], "little")
+    while max_cmds is not None and j < end:
+        cnt = int.from_bytes(arch[j: j + 2], "little")
+        arch[j + 2: j + 4] = max_cmds.to_bytes(2, "little")
+        j += 4 + cnt
+    return bytes(arch)
+
+
+def test_serial_route_is_counted():
+    """What the host finds before staging takes the serial route, counted."""
+    sharded.serial_fallbacks.clear()
+    unindexed = _pair(4, index=False, mtime=7)[0]
+    ts = _pair(6, split_bits=0)[1]
+    # split bits far past every member's body
+    far = _with_tb(stride=(1 << 31) - 1)
+    for arch, reason in ((unindexed, "no member index"),
+                         (ts, "no bit-stride split index"),
+                         (far, "corrupt split index")):
+        assert sharded.sharded_gzip_decompress(arch, device="cpu") == PAYLOAD
+        assert sharded.serial_fallbacks[reason] == 1, dict(sharded.serial_fallbacks)
+    # the first member's block type set to the reserved 3: zlib rejects it
+    bad_type = bytearray(_pair(6)[0])
+    bad_type[gz._header_end(np.frombuffer(bytes(bad_type), np.uint8))] |= 0b110
+    with pytest.raises(zlib.error):
+        sharded.sharded_gzip_decompress(bytes(bad_type), device="cpu")
+    assert sharded.serial_fallbacks["member not device-decodable"] == 1
+    assert sum(sharded.serial_fallbacks.values()) == 4
+
+
+def test_card_decode_failure_raises(no_serial):
+    """After the decode has run, a rejected row or a CRC-32 mismatch
+    raises and is never decoded again on the host."""
+    # a command capacity of 0 recorded for every member: no row finishes
+    with pytest.raises(de.MalformedError, match="invalid stream"):
+        sharded.sharded_gzip_decompress(_with_tb(max_cmds=0), device="cpu")
+    bad_crc = bytearray(_pair(6)[0])
+    bad_crc[-5] ^= 1  # the last member's CRC-32
+    with pytest.raises(de.MalformedError, match="CRC-32"):
+        sharded.sharded_gzip_decompress(bytes(bad_crc), device="cpu")
+    assert not sharded.serial_fallbacks
