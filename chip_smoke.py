@@ -9,11 +9,14 @@ Phases, each raising at its first failure:
   3. each kernel against its plain PyTorch version on the card, at the
      production shapes (B=8 segments of 130,560 bytes, P=2^17): mark path,
      histograms and slot build on a real level-4 analysis of the corpus
-     batch, literal bits and gains on a real level-6 round A of it (with
-     and without a hot-stride lane), plus edge cases (all literals, all
-     258-byte jumps or matches running into the row end, a B=1 tail
-     batch); exact equality required (integer pipeline), both times
-     printed;
+     batch, literal bits with their prefix sum and gains on a real level-6
+     round A of it (with and without a hot-stride lane), plus edge cases
+     (all literals, all 258-byte jumps or matches running into the row
+     end, a B=1 tail batch; for the mark path jumps past its staged head
+     table, 1000 long or random up to 4096, P = 2^18 and P = 512; for the
+     literal bits T = 1, a ragged T, unaligned rows and 9 rows); exact
+     equality required (integer pipeline), both times printed, and the
+     device time of each CUDA kernel of a wrapper that launches several;
   4. the main paths: gz.compress of the 8 MiB corpus (the tests/corpus
      files, sorted, concatenated, repeated, cut) on "cuda" at level 4, then
      at the default level 6 (round B), each checked against the
@@ -69,8 +72,8 @@ HOT = (8, 16, 32, 64, 128, 216, 512, 1024)
 TIMING_ITERS = 20
 #: the CUDA kernels of csrc/ (device-side names in a profile)
 PORT_KERNELS = ("chunk_exit_kernel", "chunk_hop_kernel", "chunk_refine_kernel",
-                "hist_kernel", "litbits_kernel", "gain_kernel", "slots_kernel",
-                "inflate_rows_kernel", "crc_chunks_kernel")
+                "hist_kernel", "litbits_tally_kernel", "litbits_scan_kernel", "gain_kernel",
+                "slots_kernel", "inflate_rows_kernel", "crc_chunks_kernel")
 #: (C-source, TPU kernel it replaces) per kernel wrapper
 SOURCES = {"mark_path": ("mark_path.cu", "decompress_tpu/ops/parse_pl.py:105"),
            "histograms": ("hist.cu", "decompress_tpu/ops/hist_pl.py:90"),
@@ -119,10 +122,17 @@ def max_abs_err(torch, got, want) -> int:
     return err
 
 
-def device_ms(torch, fn, iters: int = TIMING_ITERS) -> float:
-    """Device time of the port's kernels launched by fn(), per call, from
-    a profiler trace: the kernels' own durations without the host's
-    enqueue time, which bounds a CUDA-event loop of small launches."""
+def port_kernel(name: str) -> str | None:
+    """The PORT_KERNELS entry a profiled device kernel is, if any (a
+    templated kernel's name carries its arguments: ``::k<10>(``)."""
+    return next((k for k in PORT_KERNELS if f"::{k}(" in name or f"::{k}<" in name), None)
+
+
+def device_split(torch, fn, iters: int = TIMING_ITERS) -> dict:
+    """Device time in ms per call of each of the port's kernels launched
+    by fn(), by kernel name, from a profiler trace: the kernels' own
+    durations without the host's enqueue time, which bounds a CUDA-event
+    loop of small launches."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -131,10 +141,12 @@ def device_ms(torch, fn, iters: int = TIMING_ITERS) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(f"::{k}(" in e.name for k in PORT_KERNELS))
-    return us / 1e3 / iters
+    split = {}
+    for e in prof.events():
+        k = port_kernel(e.name) if e.device_type == torch.autograd.DeviceType.CUDA else None
+        if k is not None:
+            split[k] = split.get(k, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    return split
 
 
 def tensors(args):
@@ -169,13 +181,18 @@ def check_kernel(torch, name, kernel, plain, cases, norm, library=None, *, card,
     plain_ms = time_ms(torch, lambda: plain(*main_args), plain_iters,
                        min(3, plain_iters))
     library_ms = None if library is None else time_ms(torch, library)
+    split = device_split(torch, lambda: kernel(*main_args))
     stat = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms(main_args, kernel(*main_args)), bound_by="bytes",
-                library_ms=library_ms, device_ms=device_ms(torch, lambda: kernel(*main_args)))
+                library_ms=library_ms, device_ms=sum(split.values()))
     lib = "" if library_ms is None else f", library call {library_ms:.4f} ms"
     print(f"{name}: equal to plain on {len(cases)} cases; kernel {ms:.4f} ms "
           f"(device {stat['device_ms']:.4f} ms), plain {plain_ms:.4f} ms{lib}, "
           f"bound {stat['bound_ms']:.4f} ms [{card}]", flush=True)
+    if len(split) > 1:
+        stat["device_split"] = split
+        print(f"{name}: device ms by kernel " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items()) + f" [{card}]", flush=True)
     return stat
 
 
@@ -212,7 +229,6 @@ def kernel_checks(torch, dev, arr, card) -> dict:
     take, ln = lz77._take_defer(res["cand_length"], nv, seg, lz77.LEVELS[4].lazy)
     p = lz77._ceil_pow2(seg)
     g2 = lz77.jump_array(take, ln, seg, p)
-    idx = torch.arange(p, device=dev, dtype=torch.int32)
     hist_args = (res["on_path"], res["is_match"], res["length"], res["dist"], lit)
     (hv, hb), tabs, _ = de.plan_blocks(
         res["hist_lit"].cpu().numpy(), res["hist_dist"].cpu().numpy(),
@@ -230,8 +246,7 @@ def kernel_checks(torch, dev, arr, card) -> dict:
     pay = torch.arange(seg, device=dev)
     length = torch.where(pay < nv[:, None], res6["cand_length"], 0)
     dist = res6["cand_dist"]
-    lb = cost_cu.litbits_plain(lit, lc)
-    pref = torch.cat([torch.zeros_like(lb[:, :1]), torch.cumsum(lb, 1, dtype=torch.int32)], 1)
+    _, pref = cost_cu.litbits_pref_plain(lit, lc)
     hot = torch.tensor([HOT] * b, dtype=torch.int32, device=dev)
     hot_len, hot_d = lz77._hot_lane(d_data, nv, hl, hot, seg_len=seg, hist=lz77.HIST,
                                     max_dist=1 << 15)
@@ -248,21 +263,33 @@ def kernel_checks(torch, dev, arr, card) -> dict:
     def with_length(args, fill):
         return (torch.full_like(length, fill),) + args[1:]
 
+    def jumps(steps, p_):  # g of these steps from every position, capped at p_
+        return torch.clamp(torch.arange(p_, device=dev, dtype=torch.int32) + steps,
+                           max=p_).expand(b, p_).contiguous()
+
+    gen = torch.Generator(device=dev).manual_seed(4096)
+    p2 = 2 * p  # more chunks than the hop's shared-memory ring holds
+    long_steps = torch.where(torch.rand((b, p2), device=dev, generator=gen) < 0.5,
+                             torch.randint(1, 4097, (b, p2), device=dev, generator=gen,
+                                           dtype=torch.int32), 1)
     lit_idx = lit.to(torch.int64)
+    rng_lit = torch.randint(0, 256, (9, 5000), device=dev, generator=gen, dtype=torch.uint8)
+    rng_lc = torch.randint(1, 16, (9, 286), device=dev, generator=gen, dtype=torch.int32)
+    unaligned = d_data[:, lz77.HIST + 3:lz77.HIST + 3 + 9000]
     checks = {
         "mark_path": (
             parse_cu.mark_path, parse_cu.mark_path_plain,
-            [(g2,),
-             (torch.clamp(idx + 1, max=p).expand(b, p).contiguous(),),
-             (torch.clamp(idx + 258, max=p).expand(b, p).contiguous(),),
-             (g2[:1].contiguous(),)],
+            [(g2,), (jumps(1, p),), (jumps(258, p),), (g2[:1].contiguous(),),
+             (jumps(1000, p),), (jumps(long_steps[:, :p], p),), (jumps(long_steps, p2),),
+             (jumps(1000, p2),), (g2[:, :512].clamp(max=512).contiguous(),)],
             lambda o: (o,)),
         "histograms": (
             hist_cu.histograms, hist_cu.histograms_plain,
             [hist_args, tail(hist_args)], lambda o: o),
         "litbits": (
-            cost_cu.litbits, cost_cu.litbits_plain,
-            [(lit, lc), (lit[:1], lc[:1])], lambda o: (o,),
+            cost_cu.litbits_pref, cost_cu.litbits_pref_plain,
+            [(lit, lc), (lit[:1], lc[:1]), (lit[:, :1], lc), (lit[:, :5000], lc),
+             (unaligned, lc), (rng_lit, rng_lc)], lambda o: o,
             lambda: torch.gather(lc, 1, lit_idx)),
         "gain": (
             cost_cu.gain, cost_cu.gain_plain,
@@ -273,8 +300,20 @@ def kernel_checks(torch, dev, arr, card) -> dict:
             pack_cu.build_slots, pack_cu.build_slots_plain,
             [slot_args, tail(slot_args)], lambda o: masked_slots(torch, o)),
     }
-    return {name: check_kernel(torch, name, *spec, card=card)
-            for name, spec in checks.items()}
+    stats = {name: check_kernel(torch, name, *spec, card=card)
+             for name, spec in checks.items()}
+
+    def replaced():  # what round B ran for the prefix before the fused kernel
+        bits = torch.gather(lc, 1, lit_idx)
+        return torch.cat([torch.zeros_like(bits[:, :1]),
+                          torch.cumsum(bits, 1, dtype=torch.int32)], 1)
+
+    seq_ms = time_ms(torch, replaced)
+    stats["litbits"]["torch_sequence_ms"] = seq_ms
+    print(f"litbits: the torch sequence it replaces (gather, zeros_like, cumsum, cat) "
+          f"{seq_ms:.4f} ms against the kernel's {stats['litbits']['ms']:.4f} ms [{card}]",
+          flush=True)
+    return stats
 
 
 def main_path(torch, data: bytes, level, wrappers, card) -> dict:
@@ -381,7 +420,7 @@ def stage_split(torch, data: bytes, card, runs: int = 3) -> None:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    ours = [kv for kv in top if any(f"::{k}(" in kv[0] for k in PORT_KERNELS)]
+    ours = [kv for kv in top if port_kernel(kv[0])]
     print(f"profile: the port's kernels {sum(us for _, us in ours) / 1e3:.3f} ms "
           f"of device time", flush=True)
     for kname, us in top[:20] + ours:

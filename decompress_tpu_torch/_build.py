@@ -37,11 +37,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry points: name -> argument types (pointers, ints, the stream last)
 _SIGNATURES = {
-    "dtt_mark_path": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "dtt_mark_path": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "dtt_histograms": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P),
     "dtt_build_slots": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                         _I, _I, _P),
-    "dtt_litbits": (_P, _I, _P, _P, _I, _I, _P),
+    "dtt_litbits_pref": (_P, _I, _P, _P, _P, _P, _I, _I, _P),
     "dtt_gain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "dtt_inflate_rows": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _P),

@@ -4,7 +4,9 @@ Round B (``lz77.lz77_parse_cost``) re-parses round A's candidates with
 exact bit costs from per-segment code-length tables (``lcost[b, 286]``
 for literals and length codes, ``dcost[b, 30]`` for distance codes):
 
-* ``litbits[b, i] = lcost[b, lit[b, i]]``, the bits of a literal;
+* ``litbits[b, i] = lcost[b, lit[b, i]]``, the bits of a literal, and
+  ``pref``, their exclusive prefix sum (``pref[b, 0] = 0``,
+  ``pref[b, i + 1] = pref[b, i] + litbits[b, i]``), from one call;
 * ``gain[b, i]`` = the literal bits a match saves minus what it costs:
   ``pref[i + len] - pref[i] - (lcost[257 + lcode] + lext + dcost[dcode]
   + dext)`` with ``pref`` the exclusive prefix sum of ``litbits``
@@ -13,16 +15,19 @@ for literals and length codes, ``dcost[b, 30]`` for distance codes):
   gain.
 
 Replaces ``decompress_tpu/ops/cost_pl.py: litbits_pl`` and ``gain_pl``
-(``_litbits_kernel``, ``_gain_kernel``) with ``csrc/cost.cu``.  The TPU
-kernels' padded tables, select trees and 512-wide prefix slabs are TPU
-artefacts: here each block stages its segment's tables in shared memory,
-the prefix sum is one int32[B, T + 1] array in device memory, and any B
-and T are taken.  Both kernels are bound by device memory (5 bytes per
-position for litbits; 28, or 36 with the hot lane, for gain), so each is
-one pass with one thread per position, coalesced reads and writes, and
-every table read in shared memory.  The plain versions are the integer
-form of the reference's XLA branch (``lz77.lz77_parse_cost``'s
-``match_cost``/``match_gain``).
+(``_litbits_kernel``, ``_gain_kernel``), and the prefix sum between
+them, with ``csrc/cost.cu``.  The TPU kernels' padded tables, select
+trees and 512-wide prefix slabs are TPU artefacts: here each block
+stages its segment's tables in shared memory, the prefix sum is one
+int32[B, T + 1] array in device memory, and any B and T are taken.  Both
+are bound by device memory (9 bytes per position for the literal bits
+and their prefix; 28, or 36 with the hot lane, for gain): the literal
+bits are a reduce-then-scan over 4096-position tiles in one C call (two
+launches, counted as one), gain one pass with one thread per position;
+reads and writes are coalesced and every table read is in shared
+memory.  The plain versions are the integer form of the reference's XLA
+branch (``lz77.lz77_parse_cost``'s ``match_cost``/``match_gain`` and
+its cumsum).
 """
 
 from __future__ import annotations
@@ -38,27 +43,39 @@ from . import codes
 NEG_GAIN = -(1 << 29)
 
 
-def litbits_plain(lit, lcost):
-    """int32[B, T]: lcost[b, lit[b, i]] by a gather."""
-    return torch.gather(lcost, 1, lit.to(torch.int64))
+#: positions per block of the literal-bits scan (``kScanTile`` in csrc/cost.cu)
+LITBITS_TILE = 4096
 
 
-def litbits(lit, lcost):
-    """Literal bits of a batch: lit uint8[B, T] (the payload bytes; rows
-    may be a strided view), lcost int32[B, 286].  A CPU tensor takes
-    :func:`litbits_plain`; a CUDA tensor launches the kernel (or
-    raises)."""
+def litbits_pref_plain(lit, lcost):
+    """(litbits int32[B, T], pref int32[B, T + 1]) by a gather and a
+    cumsum; see :func:`litbits_pref`."""
+    bits = torch.gather(lcost, 1, lit.to(torch.int64))
+    pref = torch.cat([torch.zeros_like(bits[:, :1]),
+                      torch.cumsum(bits, 1, dtype=torch.int32)], 1)
+    return bits, pref
+
+
+def litbits_pref(lit, lcost):
+    """Literal bits of a batch and their exclusive prefix sum: lit
+    uint8[B, T] (the payload bytes; rows may be a strided view), lcost
+    int32[B, 286] -> (litbits int32[B, T], pref int32[B, T + 1]).  A CPU
+    tensor takes :func:`litbits_pref_plain`; a CUDA tensor launches the
+    kernel (or raises)."""
     if lit.device.type == "cpu":
-        return litbits_plain(lit, lcost)
+        return litbits_pref_plain(lit, lcost)
     b, t = lit.shape
     _build.check_rows("lit", lit, torch.uint8, (b, t))
     _build.check_cuda("lcost", lcost, torch.int32, (b, NUM_LIT_SYMS))
-    out = torch.empty((b, t), dtype=torch.int32, device=lit.device)
-    err = _build.lib().dtt_litbits(lit.data_ptr(), lit.stride(0),
-                                   lcost.data_ptr(), out.data_ptr(), b, t,
-                                   _build.stream(lit))
+    bits = torch.empty((b, t), dtype=torch.int32, device=lit.device)
+    pref = torch.empty((b, t + 1), dtype=torch.int32, device=lit.device)
+    tile_sums = torch.empty((b, max(1, -(-t // LITBITS_TILE))),
+                            dtype=torch.int32, device=lit.device)
+    err = _build.lib().dtt_litbits_pref(
+        lit.data_ptr(), lit.stride(0), lcost.data_ptr(), tile_sums.data_ptr(),
+        bits.data_ptr(), pref.data_ptr(), b, t, _build.stream(lit))
     _build.launched("litbits", err)
-    return out
+    return bits, pref
 
 
 def _gain_plain(length, dist, pref, lcost, dcost):

@@ -659,8 +659,8 @@ def lz77_parse_cost(data, cand_length, cand_dist, n_valid, lit_cost,
     code lengths in any dtype).  A match is taken when its coded bits
     undercut the literals it covers, and lazy deferral compares bit
     gains.  The reference's kernel-branch order, in int32: literal bits
-    (kernel), their exclusive prefix sum, the optional hot-stride lane
-    (hot_dists int32[B, HOT_DISTS]), gains (kernel), take/defer, then
+    and their exclusive prefix sum (one kernel), the optional hot-stride
+    lane (hot_dists int32[B, HOT_DISTS]), gains (kernel), take/defer, then
     the mark path and the histograms.  Costs are small integers and the
     prefix stays below 2^24, so the integers equal the reference's
     float32 branch; the NEG_GAIN sentinel never decides a take because
@@ -673,9 +673,7 @@ def lz77_parse_cost(data, cand_length, cand_dist, n_valid, lit_cost,
     length = torch.where(cand_dist <= max_dist, length, 0)
     lcost = lit_cost.to(torch.int32).contiguous()
     dcost = dist_cost.to(torch.int32).contiguous()
-    litbits = cost_cu.litbits(data[:, hist:hist + seg_len], lcost)
-    pref = torch.cat([torch.zeros_like(litbits[:, :1]),
-                      torch.cumsum(litbits, 1, dtype=torch.int32)], 1)
+    litbits, pref = cost_cu.litbits_pref(data[:, hist:hist + seg_len], lcost)
     hot_len = hot_d = None
     if hot_dists is not None:
         hot_len, hot_d = _hot_lane(data, n_valid, hist_len, hot_dists,

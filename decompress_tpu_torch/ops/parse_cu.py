@@ -5,9 +5,12 @@ from position 0; ``on_path[i]`` is True iff the walk lands on ``i``.
 
 Replaces ``decompress_tpu/ops/parse_pl.py: mark_path_pl`` (its
 ``_exit_kernel`` and ``_refine_kernel`` together with the XLA row-hop
-scan between them) with ``csrc/mark_path.cu``.  The plain version here
-is the reference's ``lz77._mark_path``: full-domain pointer doubling,
-then a top-down entry refinement.
+scan between them) with ``csrc/mark_path.cu``: per-chunk doubling exits
+(levels 1-5 by warp shuffles), one thread per segment hopping across the
+chunks over a head table staged in shared memory by bulk copies, then a
+top-down refinement.  The plain version here is the reference's
+``lz77._mark_path``: full-domain pointer doubling, then a top-down entry
+refinement.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from .. import _build
 
 #: positions per block of the CUDA kernel (log2); one thread per position
 CHUNK_LOG = 10
+#: exits per chunk in the kernel's head table (``kHeadW`` in csrc/mark_path.cu)
+HEAD_W = 288
 
 
 def mark_path_plain(g: torch.Tensor) -> torch.Tensor:
@@ -56,12 +61,17 @@ def mark_path(g: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"mark_path: P={p} must be a power of two >= 2")
     _build.check_cuda("g", g, torch.int32)
     chunk_log = min(CHUNK_LOG, p.bit_length() - 1)
-    exits = torch.empty_like(g)
-    entries = torch.empty((b, p >> chunk_log), dtype=torch.int32,
-                          device=g.device)
+    nchunks = p >> chunk_log
+    # one scratch allocation: the head table first (its bulk copies need
+    # 16-byte alignment), then the exits and the chunk entries
+    scratch = torch.empty(b * (nchunks * HEAD_W + p + nchunks),
+                          dtype=torch.int32, device=g.device)
+    heads = scratch.data_ptr()
+    exits = heads + 4 * b * nchunks * HEAD_W
+    entries = exits + 4 * b * p
     on_path = torch.empty((b, p), dtype=torch.uint8, device=g.device)
     err = _build.lib().dtt_mark_path(
-        g.data_ptr(), exits.data_ptr(), entries.data_ptr(),
-        on_path.data_ptr(), b, p, chunk_log, _build.stream(g))
+        g.data_ptr(), exits, heads, entries, on_path.data_ptr(), b, p,
+        chunk_log, _build.stream(g))
     _build.launched("mark_path", err)
     return on_path.view(torch.bool)

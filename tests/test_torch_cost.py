@@ -2,7 +2,8 @@
 
 The plain versions of the literal-bits and gain kernels (which the
 ``cost_cu`` wrappers take for CPU tensors) are held against
-``cost_pl.litbits_pl`` and ``cost_pl.gain_pl`` in interpret mode; the
+``cost_pl.litbits_pl`` and ``cost_pl.gain_pl`` in interpret mode, and
+the literal bits' prefix sum against the reference's ``_pref_slab``; the
 port's int32 ``lz77_parse_cost`` against the reference's (its XLA
 float32 branch on the CPU), array for array, without and with history,
 hot-stride mining and a 1 KiB window; the copied host helpers
@@ -36,11 +37,41 @@ def test_litbits_matches_pallas_kernel(b):
     batch = rng.integers(0, 256, (b, 40 + T), dtype=np.uint8)
     lcost, _ = _costs(rng, b)
     lit = torch.from_numpy(batch)[:, 40:]  # strided rows, as a batch payload
-    got = cost_cu.litbits(lit, torch.from_numpy(lcost))
+    got = cost_cu.litbits_pref(lit, torch.from_numpy(lcost))[0]
     want = cost_pl.litbits_pl(jnp.asarray(batch[:, 40:].astype(np.int32)),
                               jnp.asarray(lcost), interpret=True)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("b", [1, 2])
+def test_litbits_pref_matches_reference(b, strided):
+    """Both outputs of litbits_pref: the bits against the Pallas kernel,
+    the prefix against the reference's own, read back from the per-row
+    512-wide slabs ``cost_pl._pref_slab`` builds of the same bits (row r
+    of a segment holds pref[r * 128 + j] at column j, so columns 0-127
+    of its rows are pref[:T] and its last row's column 128 is pref[T])."""
+    rng = np.random.default_rng(20 + b)
+    off = 40 if strided else 0
+    batch = rng.integers(0, 256, (b, off + T), dtype=np.uint8)
+    lcost, _ = _costs(rng, b)
+    bits, pref = cost_cu.litbits_pref(torch.from_numpy(batch)[:, off:],
+                                      torch.from_numpy(lcost))
+    assert bits.dtype == pref.dtype == torch.int32
+    assert pref.shape == (b, T + 1)
+    want = np.asarray(cost_pl.litbits_pl(
+        jnp.asarray(batch[:, off:].astype(np.int32)), jnp.asarray(lcost),
+        interpret=True))
+    np.testing.assert_array_equal(bits.numpy(), want)
+    rps, rp_pad, _, _ = cost_pl._grids(b, T)
+    slab = np.asarray(cost_pl._pref_slab(jnp.asarray(want))).reshape(
+        b, rp_pad, cost_pl.SLAB_W)
+    np.testing.assert_array_equal(pref[:, :T].numpy(),
+                                  slab[:, :rps, :cost_pl.LANES].reshape(b, T))
+    np.testing.assert_array_equal(pref[:, T].numpy(),
+                                  slab[:, rps - 1, cost_pl.LANES])
+    assert (pref[:, 0] == 0).all()
 
 
 def _gain_inputs(rng, b, hot: bool):
@@ -192,9 +223,7 @@ def test_parse_cost_zero_gain_boundary_matches_reference():
     # gains of exactly 0 do occur on these inputs
     res = _round_a(data, n_valid, hist_len, 0)
     lcost = torch.from_numpy(lc.astype(np.int32))
-    lb = cost_cu.litbits(torch.from_numpy(data), lcost)
-    pref = torch.cat([torch.zeros_like(lb[:, :1]),
-                      torch.cumsum(lb, 1, dtype=torch.int32)], 1)
+    _, pref = cost_cu.litbits_pref(torch.from_numpy(data), lcost)
     _, _, gain = cost_cu.gain(torch.from_numpy(res["cand_length"]),
                               torch.from_numpy(res["cand_dist"]),
                               None, None, pref, lcost,

@@ -6,11 +6,13 @@ tests).  This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Random and extreme inputs, odd shapes (P below one 1024-position chunk,
-batches of 1 and 9 rows, strided payload rows, matches running into the
-row end, with and without the hot lane); exact equality (integer
-kernels), slot values compared under their n-bit masks; gzip on the card
-at levels 1, 4, 6 and 9 equal to the CPU port.  The decode kernel against
+Random and extreme inputs, odd shapes (P below one 1024-position chunk
+and P = 2^18, jumps past the mark path's staged head table, batches of 1
+and 9 rows, T = 1 and T off the literal-bits tile, strided payload rows
+aligned and not, matches running into the row end, with and without the
+hot lane); exact equality (integer kernels), slot values compared under
+their n-bit masks; gzip on the card at levels 1, 4, 6 and 9 equal to the
+CPU port.  The decode kernel against
 its plain version on archive rows (dynamic, stored, zero-run and fixed
 members, a flipped bit), the CRC kernel on chunks of member batches at
 lengths around the 256-byte chunk, and the sharded round trip on the card.
@@ -47,8 +49,9 @@ def _jumps(rng, b, p, seg_len, take_p=0.3):
     return np.minimum(np.arange(p)[None, :] + step, p).astype(np.int32)
 
 
-@pytest.mark.parametrize("p,seg_len,b", [(2, 2, 1), (128, 100, 2), (2048, 2000, 3),
-                                         (1 << 17, 130560, 3)])
+@pytest.mark.parametrize("p,seg_len,b", [(2, 2, 1), (128, 100, 2), (512, 500, 2),
+                                         (2048, 2000, 3), (1 << 17, 130560, 3),
+                                         (1 << 18, 250000, 2)])
 def test_mark_path_kernel(dev, p, seg_len, b):
     g = torch.from_numpy(_jumps(np.random.default_rng(p), b, p, seg_len)).to(dev)
     before = _build.LAUNCHES["mark_path"]
@@ -65,6 +68,28 @@ def test_mark_path_kernel_extremes(dev, step):
     got = parse_cu.mark_path(g.expand(2, p).contiguous())
     assert got.sum().item() == 2 * len(range(0, p, step))
     assert torch.equal(got, parse_cu.mark_path_plain(g.expand(2, p)))
+
+
+@pytest.mark.parametrize("p", [1 << 17, 1 << 18])
+@pytest.mark.parametrize("jumps", ["plus1000", "random4096"])
+def test_mark_path_kernel_long_jumps(dev, p, jumps):
+    """Walks entering chunks past the staged 288-exit heads: every step
+    1000 long, or random steps up to 4096 (P = 2^18: more chunks than
+    the hop's shared-memory ring holds, so the ring wraps)."""
+    idx = torch.arange(p, device=dev, dtype=torch.int32)
+    if jumps == "plus1000":
+        g = torch.clamp(idx + 1000, max=p).expand(3, p).contiguous()
+    else:
+        rng = np.random.default_rng(p)
+        step = np.where(rng.random((3, p)) < 0.5, rng.integers(1, 4097, (3, p)), 1)
+        g = torch.from_numpy(np.minimum(np.arange(p) + step, p).astype(np.int32)).to(dev)
+    before = _build.LAUNCHES["mark_path"]
+    got = parse_cu.mark_path(g)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mark_path"] == before + 1
+    assert torch.equal(got, parse_cu.mark_path_plain(g))
+    if jumps == "plus1000":
+        assert got.sum().item() == 3 * len(range(0, p, 1000))
 
 
 def _parse_arrays(rng, b, t, dev):
@@ -103,16 +128,24 @@ def test_slots_kernel(dev, b, t):
     assert torch.equal(v23 & ((one << n23) - 1), w23 & ((one << m23) - 1))
 
 
-@pytest.mark.parametrize("b,t", [(1, 300), (9, 5000), (8, 130560)])
-def test_litbits_kernel(dev, b, t):
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("b,t", [(1, 300), (9, 5000), (8, 130560), (2, 1), (3, 3 * 4096 + 17)])
+def test_litbits_kernel(dev, b, t, aligned):
+    """Literal bits and their prefix, on payload rows that are 16-byte
+    aligned (one vector load a thread, a ragged row end) or not (byte
+    loads)."""
     rng = np.random.default_rng(t + 2)
-    batch = torch.from_numpy(rng.integers(0, 256, (b, 64 + t), dtype=np.uint8)).to(dev)
+    width = 64 + (-(-t // 16) * 16 if aligned else t)
+    batch = torch.from_numpy(rng.integers(0, 256, (b, width), dtype=np.uint8)).to(dev)
+    lit = batch[:, 64:64 + t]
     lcost = torch.from_numpy(rng.integers(1, 16, (b, 286)).astype(np.int32)).to(dev)
     before = _build.LAUNCHES["litbits"]
-    got = cost_cu.litbits(batch[:, 64:], lcost)
+    bits, pref = cost_cu.litbits_pref(lit, lcost)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["litbits"] == before + 1
-    assert torch.equal(got, cost_cu.litbits_plain(batch[:, 64:], lcost))
+    want_bits, want_pref = cost_cu.litbits_pref_plain(lit, lcost)
+    assert torch.equal(bits, want_bits)
+    assert torch.equal(pref, want_pref)
 
 
 @pytest.mark.parametrize("hot", [False, True])
@@ -151,7 +184,7 @@ def test_wrappers_reject_bad_tensors(dev):
         cost_cu.gain(z, z, None, None, z, z[:, :1].expand(2, 286).contiguous(),
                      z[:, :30].contiguous())
     with pytest.raises(TypeError):  # the payload is uint8
-        cost_cu.litbits(z, torch.zeros((2, 286), dtype=torch.int32, device=dev))
+        cost_cu.litbits_pref(z, torch.zeros((2, 286), dtype=torch.int32, device=dev))
 
 
 @pytest.mark.parametrize("level", [1, 4, 6, 9])

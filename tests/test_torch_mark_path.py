@@ -3,9 +3,10 @@
 The plain version (``parse_cu.mark_path_plain``, which the wrapper takes
 for CPU tensors) is held against the Pallas kernel in interpret mode
 (``parse_pl.mark_path_pl``) and against ``lz77._mark_path``, on the
-jump arrays the parse produces and on the extremes (all literals, all
-258-byte jumps).  The CUDA kernel is held against the same plain
-version on the card (tests/test_torch_cuda.py, chip_smoke.py).
+jump arrays the parse produces, on the extremes (all literals, all
+258-byte jumps) and on jumps of up to 2,000 positions.  The CUDA kernel
+is held against the same plain version on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import numpy as np
@@ -54,6 +55,20 @@ def test_mark_path_extremes(step):
     want = np.zeros(p, bool)
     want[::step] = True
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("p,max_step,take_p", [(4096, 2000, 0.2), (8192, 2000, 0.05),
+                                               (2048, 1000, 1.0)])
+def test_mark_path_generic_jumps(p, max_step, take_p):
+    """Jumps longer than a match (up to 2,000): a walk may enter a
+    1024-position chunk far past the kernel's 288-exit head table, and
+    cross chunks without landing in them."""
+    rng = np.random.default_rng(p + max_step)
+    step = np.where(rng.random((2, p)) < take_p,
+                    rng.integers(1, max_step + 1, (2, p)), 1)
+    g = np.minimum(np.arange(p)[None, :] + step, p).astype(np.int32)
+    got = _check(g)
+    assert got[:, 0].all() and got.sum() < 2 * p // 4
 
 
 def test_jump_array_matches_reference_parse():
