@@ -14,9 +14,12 @@ Phases, each raising at its first failure:
      (all literals, all 258-byte jumps or matches running into the row
      end, a B=1 tail batch; for the mark path jumps past its staged head
      table, 1000 long or random up to 4096, P = 2^18 and P = 512; for the
-     literal bits T = 1, a ragged T, unaligned rows and 9 rows); exact
-     equality required (integer pipeline), both times printed, and the
-     device time of each CUDA kernel of a wrapper that launches several;
+     literal bits T = 1, a ragged T, unaligned rows and 9 rows; for the
+     histograms 9 rows, T = 1, T off 16 positions, unaligned payload rows,
+     one literal or one match everywhere, nothing on the path); exact
+     equality required (integer pipeline), both times printed, the device
+     time L2-warm and cold (64 MB overwritten before each launch), and of
+     each CUDA kernel of a wrapper that launches several;
   4. the main paths: gz.compress of the 8 MiB corpus (the tests/corpus
      files, sorted, concatenated, repeated, cut) on "cuda" at level 4, then
      at the default level 6 (round B), each checked against the
@@ -35,14 +38,17 @@ Phases, each raising at its first failure:
   7. the decode and CRC kernels against their plain versions on the card:
      the archive's split rows, one member's rows alone, a fixed-Huffman
      member, a member with one flipped bit (both must reject its final
-     row), rows starting before and past a body; the CRC chunk registers of the decoded members and of rows of
-     lengths 0, 1, 255, 256, 257 and 130,560.
+     row), rows starting before and past a body, the archive with 40 bits
+     flipped in every member's first row; the synchronisation rounds per
+     row of the archive; the CRC chunk registers of the decoded members
+     and of rows of lengths 0, 1, 255, 256, 257 and 130,560.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the path that uses them (the default
 level-6 gz.compress for the compression kernels, the sharded round trip
 for decode and CRC), errors, times and bounds; "ms" is a CUDA-event loop
-of launches, "device_ms" the kernels' own device time from a profile.  Exits nonzero, with no
-result, where CUDA is absent.
+of launches, "device_ms" and "device_cold_ms" the kernels' own device
+time from a profile, L2-warm and with the L2 flushed before each launch.
+Exits nonzero, with no result, where CUDA is absent.
 """
 
 from __future__ import annotations
@@ -70,6 +76,9 @@ HBM_BYTES_PER_S = 3.35e12
 #: hot-stride distances for the gain checks' hot lane
 HOT = (8, 16, 32, 64, 128, 216, 512, 1024)
 TIMING_ITERS = 20
+#: bytes overwritten between launches for the cold-L2 device times (the
+#: H100's L2 holds 50 MB)
+FLUSH_BYTES = 64 << 20
 #: the CUDA kernels of csrc/ (device-side names in a profile)
 PORT_KERNELS = ("chunk_exit_kernel", "chunk_hop_kernel", "chunk_refine_kernel",
                 "hist_kernel", "litbits_tally_kernel", "litbits_scan_kernel", "gain_kernel",
@@ -128,25 +137,45 @@ def port_kernel(name: str) -> str | None:
     return next((k for k in PORT_KERNELS if f"::{k}(" in name or f"::{k}<" in name), None)
 
 
-def device_split(torch, fn, iters: int = TIMING_ITERS) -> dict:
+def device_split(torch, fn, iters: int = TIMING_ITERS, flush=None) -> tuple[dict, int]:
     """Device time in ms per call of each of the port's kernels launched
     by fn(), by kernel name, from a profiler trace: the kernels' own
     durations without the host's enqueue time, which bounds a CUDA-event
-    loop of small launches."""
+    loop of small launches; and the device kernels per call, the port's
+    or not.  With ``flush``, flush() runs before every call (cold L2; its
+    own kernels are not the port's, so they are not in the split)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if flush is not None:
+                flush()
             fn()
         torch.cuda.synchronize()
-    split = {}
+    return per_call(torch, prof, iters)
+
+
+def per_call(torch, prof, iters: int) -> tuple[dict, int]:
+    """Device ms per call of each of the port's kernels, and device
+    kernels per call, from a profile of ``iters`` calls.  The profiler may
+    drop a few kernel records of a long run, so each kernel's time per
+    call is its mean duration times its launches per call, and those are
+    the record count over ``iters``, rounded."""
+    durations: dict = {}
     for e in prof.events():
-        k = port_kernel(e.name) if e.device_type == torch.autograd.DeviceType.CUDA else None
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            durations.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    split: dict = {}
+    kernels = 0
+    for name, d in durations.items():
+        launches = max(1, round(len(d) / iters))
+        kernels += launches
+        k = port_kernel(name)
         if k is not None:
-            split[k] = split.get(k, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-    return split
+            split[k] = split.get(k, 0.0) + sum(d) / len(d) * launches
+    return split, kernels
 
 
 def tensors(args):
@@ -181,18 +210,24 @@ def check_kernel(torch, name, kernel, plain, cases, norm, library=None, *, card,
     plain_ms = time_ms(torch, lambda: plain(*main_args), plain_iters,
                        min(3, plain_iters))
     library_ms = None if library is None else time_ms(torch, library)
-    split = device_split(torch, lambda: kernel(*main_args))
+    split, kernels = device_split(torch, lambda: kernel(*main_args))
+    scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    cold, _ = device_split(torch, lambda: kernel(*main_args), flush=lambda: scratch.fill_(1))
     stat = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms(main_args, kernel(*main_args)), bound_by="bytes",
-                library_ms=library_ms, device_ms=sum(split.values()))
+                library_ms=library_ms, device_ms=sum(split.values()),
+                device_cold_ms=sum(cold.values()), device_kernels_per_call=kernels)
     lib = "" if library_ms is None else f", library call {library_ms:.4f} ms"
     print(f"{name}: equal to plain on {len(cases)} cases; kernel {ms:.4f} ms "
-          f"(device {stat['device_ms']:.4f} ms), plain {plain_ms:.4f} ms{lib}, "
+          f"(device {stat['device_ms']:.4f} ms L2-warm, {stat['device_cold_ms']:.4f} ms "
+          f"cold; {kernels} device kernels a call), plain {plain_ms:.4f} ms{lib}, "
           f"bound {stat['bound_ms']:.4f} ms [{card}]", flush=True)
     if len(split) > 1:
         stat["device_split"] = split
+        stat["device_cold_split"] = cold
         print(f"{name}: device ms by kernel " + ", ".join(
-            f"{k} {v:.4f}" for k, v in split.items()) + f" [{card}]", flush=True)
+            f"{k} {v:.4f} (cold {cold.get(k, 0.0):.4f})" for k, v in split.items())
+            + f" [{card}]", flush=True)
     return stat
 
 
@@ -217,7 +252,7 @@ def corpus_batch(torch, de, dev, arr):
 def kernel_checks(torch, dev, arr, card) -> dict:
     """Phase 3: every kernel == its plain version at the production
     shapes; returns name -> {max_abs_err, ms, plain_ms}."""
-    from decompress_tpu_torch import de
+    from decompress_tpu_torch import _build, de
     from decompress_tpu_torch.ops import cost_cu, hist_cu, lz77, pack_cu, parse_cu
 
     seg = de.SEGMENT_SIZE
@@ -276,6 +311,20 @@ def kernel_checks(torch, dev, arr, card) -> dict:
     rng_lit = torch.randint(0, 256, (9, 5000), device=dev, generator=gen, dtype=torch.uint8)
     rng_lc = torch.randint(1, 16, (9, 286), device=dev, generator=gen, dtype=torch.int32)
     unaligned = d_data[:, lz77.HIST + 3:lz77.HIST + 3 + 9000]
+
+    def hist_cut(t, lit_off=0):  # the first t positions; the payload rows shifted
+        return tuple(a[:, :t].contiguous() for a in hist_args[:4]) + (
+            d_data[:, lz77.HIST + lit_off:lz77.HIST + lit_off + t],)
+
+    def rows9(args):  # 9 segments: the batch and its first row again
+        return tuple(torch.cat([a, a[:1]]) for a in args[:4]) + (
+            torch.cat([d_data, d_data[:1]])[:, lz77.HIST:],)
+
+    on_all, off_all = torch.ones_like(res["on_path"]), torch.zeros_like(res["on_path"])
+    one_literal = (on_all, off_all) + hist_args[2:4] + (
+        torch.full_like(d_data, 97)[:, lz77.HIST:],)
+    one_match = (on_all, on_all, torch.full_like(res["length"], 258),
+                 torch.full_like(res["dist"], 1), lit)
     checks = {
         "mark_path": (
             parse_cu.mark_path, parse_cu.mark_path_plain,
@@ -285,7 +334,9 @@ def kernel_checks(torch, dev, arr, card) -> dict:
             lambda o: (o,)),
         "histograms": (
             hist_cu.histograms, hist_cu.histograms_plain,
-            [hist_args, tail(hist_args)], lambda o: o),
+            [hist_args, tail(hist_args), rows9(hist_args), hist_cut(1), hist_cut(4103),
+             hist_cut(seg - 16, 3), one_literal, one_match,
+             (off_all, off_all) + hist_args[2:]], lambda o: o),
         "litbits": (
             cost_cu.litbits_pref, cost_cu.litbits_pref_plain,
             [(lit, lc), (lit[:1], lc[:1]), (lit[:, :1], lc), (lit[:, :5000], lc),
@@ -302,6 +353,10 @@ def kernel_checks(torch, dev, arr, card) -> dict:
     }
     stats = {name: check_kernel(torch, name, *spec, card=card)
              for name, spec in checks.items()}
+    if stats["histograms"]["device_kernels_per_call"] != 1:
+        raise AssertionError("histograms: a call launched more than its one kernel")
+    print(f"histograms: clusters of {_build.lib().dtt_hist_cluster_blocks()} blocks a "
+          f"segment", flush=True)
 
     def replaced():  # what round B ran for the prefix before the fused kernel
         bits = torch.gather(lc, 1, lit_idx)
@@ -526,34 +581,48 @@ def decode_crc_checks(torch, dev, data: bytes, archive: bytes, card) -> dict:
 
     metas, huff, rows, max_cmds = sharded.decode_plan(np.frombuffer(archive, np.uint8))
 
-    def staged(members, flip=False):
+    def args(st, cap):
+        return (st["words"], st["tabs"], st["row_ptr"], st["start"], st["stop"], st["nbits"],
+                st["blocks"], cap)
+
+    def staged(members, flip=None):
         bodies = [metas[i][1].copy() for i in members]
-        if flip:  # a bit of the first member's end-of-block code
+        if flip == "eob":  # a bit of the first member's end-of-block code
             bodies[0][-1] ^= 1 << 7 if bodies[0][-1] >> 7 else 1
+        elif flip == "interior":  # 40 bits of every member's first row
+            rng = np.random.default_rng(11)
+            for body, i in zip(bodies, members):
+                (s0, s1), = rows[huff.index(i)][:1]
+                for bit in rng.integers(s0, s1 or body.size * 8, 40):
+                    body[bit >> 3] ^= 1 << (bit & 7)
         st = inflate_cu.stage(bodies, [metas[i][0][1] for i in members],
                               [metas[i][0][2] for i in members],
                               [rows[huff.index(i)] for i in members], dev)
-        return (st["words"], st["tabs"], st["row_ptr"], st["start"], st["stop"], max_cmds)
+        return args(st, max_cmds)
 
     fixed_in = data[:20_000]
     c = zlib.compressobj(6, zlib.DEFLATED, -15, 9, zlib.Z_FIXED)
     body = np.frombuffer(c.compress(fixed_in) + c.flush(), np.uint8)
     _, ll, dl, start = inflate.prepare_member(body)
-    st = inflate_cu.stage([body], [ll], [dl], [[(start, 0)]], dev)
-    fixed = (st["words"], st["tabs"], st["row_ptr"], st["start"], st["stop"],
-             len(fixed_in) + 2)
+    fixed = args(inflate_cu.stage([body], [ll], [dl], [[(start, 0)]], dev), len(fixed_in) + 2)
     # rows starting before and far past a body read only clamped words
-    st = inflate_cu.stage([body] * 2, [ll] * 2, [dl] * 2,
-                          [[(-40, 0)], [(body.size * 8 + 4096, 0)]], dev)
-    clamped = (st["words"], st["tabs"], st["row_ptr"], st["start"], st["stop"], 64)
-    cases = [staged(huff), staged(huff[-1:]), fixed, staged(huff[:1], flip=True), clamped]
+    clamped = args(inflate_cu.stage([body] * 2, [ll] * 2, [dl] * 2,
+                                    [[(-40, 0)], [(body.size * 8 + 4096, 0)]], dev), 64)
+    cases = [staged(huff), staged(huff[-1:]), fixed, staged(huff[:1], flip="eob"), clamped,
+             staged(huff, flip="interior")]
     print(f"decode inputs: {len(huff)} members, {int(cases[0][2][-1])} rows, "
           f"max_cmds {max_cmds}; fixed member of {len(fixed_in)} bytes", flush=True)
-    if not all(bool(inflate_cu.decode(*args)[1].all()) for args in cases[:3]):
+    if not all(bool(inflate_cu.decode(*a)[1].all()) for a in cases[:3]):
         raise AssertionError("decode: a valid row was rejected")
     bad_ok = inflate_cu.decode(*cases[3])[1]
     if (~bad_ok).nonzero().flatten().tolist() != [len(rows[0]) - 1]:
         raise AssertionError(f"decode: the flipped member gave ok {bad_ok.tolist()}")
+    rounds = torch.empty_like(cases[0][3])
+    inflate_cu.decode(*cases[0], rounds=rounds)
+    per_row = rounds.to(torch.float64)
+    print(f"decode: synchronisation rounds per row of the archive: mean "
+          f"{float(per_row.mean()):.3f}, max {int(rounds.max())}, rows with none "
+          f"{int((rounds == 0).sum())} of {rounds.numel()} [{card}]", flush=True)
     stats = {"decode": check_kernel(torch, "decode", inflate_cu.decode,
                                     inflate_cu.decode_plain, cases, lambda o: o,
                                     card=card, plain_iters=1)}

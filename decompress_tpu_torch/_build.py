@@ -39,12 +39,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "dtt_mark_path": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "dtt_histograms": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P),
+    "dtt_hist_cluster_blocks": (),
     "dtt_build_slots": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                         _I, _I, _P),
     "dtt_litbits_pref": (_P, _I, _P, _P, _P, _P, _I, _I, _P),
     "dtt_gain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "dtt_inflate_rows": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _P),
+    "dtt_inflate_rows": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                         _P, _P, _P, _P, _I, _P),
     "dtt_crc_chunks": (_P, _P, _P, _I, _P),
 }
 

@@ -5,8 +5,11 @@ is s (the literal byte, or 257 + length code for a match; EOB is not
 counted) and ``hist_dist[b, c]`` the matches whose distance code is c.
 
 Replaces ``decompress_tpu/ops/hist_pl.py: histograms_pl`` (its
-``_hist_kernel``) with ``csrc/hist.cu``.  The plain version is the
-reference's scatter-add form (``lz77._summarize_one``).
+``_hist_kernel``) with ``csrc/hist.cu``: one thread-block cluster per
+segment, 16-byte loads, per-warp shared-memory histograms added across
+the cluster through distributed shared memory, every output bin written
+once by a plain store (one launch, no zero fill).  The plain version is
+the reference's scatter-add form (``lz77._summarize_one``).
 """
 
 from __future__ import annotations
@@ -46,8 +49,8 @@ def histograms(on_path, is_match, length, dist, lit):
                         ("dist", dist, torch.int32)):
         _build.check_cuda(name, a, dt, (b, t))
     _build.check_rows("lit", lit, torch.uint8, (b, t))
-    hl = torch.zeros((b, NUM_LIT_SYMS), dtype=torch.int32, device=length.device)
-    hd = torch.zeros((b, NUM_DIST_SYMS), dtype=torch.int32, device=length.device)
+    hl = torch.empty((b, NUM_LIT_SYMS), dtype=torch.int32, device=length.device)
+    hd = torch.empty((b, NUM_DIST_SYMS), dtype=torch.int32, device=length.device)
     err = _build.lib().dtt_histograms(
         on_path.data_ptr(), is_match.data_ptr(), length.data_ptr(),
         dist.data_ptr(), lit.data_ptr(), lit.stride(0), hl.data_ptr(),

@@ -15,9 +15,11 @@ where stop_k is the next row's start bit, and the member's final row
   length base - 3, distance base - 1 or subtable offset), entry for entry
   the reference's ``ops/inflate_pl.build_row_tables``, built per member
   instead of per 128-lane row.
-* :func:`decode` runs ``csrc/inflate.cu`` (one block per member, its
-  four tables staged in shared memory, one thread per row);
-  :func:`decode_plain` is the same loop over all rows at once in torch.
+* :func:`decode` runs ``csrc/inflate.cu`` (one warp per row, its 32
+  lanes decoding equal bit ranges of the row speculatively, then
+  synchronised on Huffman codes' self-synchronisation; blocks of 8 rows of
+  one member, the member's four tables staged in shared memory);
+  :func:`decode_plain` is the serial loop over all rows at once in torch.
   Each row's commands land in its row of an int32[rows, max_cmds] output
   (``kind << 26 | dist << 10 | value``, then the end filler ``2 << 26``),
   with an ok flag and a command count per row.
@@ -52,6 +54,8 @@ SUB_BITS = 15 - ROOT_BITS
 SUB_SLOTS = 1 << SUB_BITS            # fixed 32-entry subtables
 LITSUB_SIZE = 2048                   # 64 distinct long prefixes
 DISTSUB_SIZE = 1024                  # 32 distinct long prefixes
+ROW_WARPS = 8                        # rows per block of the decode kernel
+MAX_ROW_BITS = (1 << 30) - 1         # the kernel keeps a row's bit positions in int32
 
 CLS_INVALID = 0
 CLS_LIT = 1
@@ -189,7 +193,12 @@ def stage(bodies, lit_lens, dist_lens, row_bits, device):
     Returns a dict: ``words`` int32[M, W] (each body's little-endian
     words, zero-padded by at least one word), ``tabs`` (the four tables),
     ``tab_ok`` bool[M], ``row_ptr`` int32[M + 1] (member m's rows are
-    row_ptr[m]..row_ptr[m + 1]), ``start``/``stop`` int32[R]."""
+    row_ptr[m]..row_ptr[m + 1]), ``start``/``stop`` int32[R], ``nbits``
+    int32[M] (each body's bit length, where a final row's lane ranges
+    end) and ``blocks`` int32[NB, 2] (member, first row) of each
+    ``ROW_WARPS``-row block of the kernel's grid, rows of one member.
+    Raises ValueError for a row that spans more than ``MAX_ROW_BITS``
+    (to its stop, or to its body's end for a final row)."""
     m = len(bodies)
     nw = max(b.size for b in bodies) // 4 + 2
     words = np.zeros((m, nw * 4), np.uint8)
@@ -197,6 +206,13 @@ def stage(bodies, lit_lens, dist_lens, row_bits, device):
         words[i, : body.size] = body
     counts = [len(r) for r in row_bits]
     bits = np.array([b for r in row_bits for b in r], np.int32).reshape(-1, 2)
+    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    ends = np.repeat([b.size * 8 for b in bodies], counts)
+    span = np.where(bits[:, 1] > 0, bits[:, 1], ends) - bits[:, 0].astype(np.int64)
+    if span.size and span.max() > MAX_ROW_BITS:
+        raise ValueError(f"a decode row spans {span.max()} bits, above {MAX_ROW_BITS}")
+    blocks = np.array([(i, row_ptr[i] + j) for i, c in enumerate(counts)
+                       for j in range(0, c, ROW_WARPS)], np.int32).reshape(-1, 2)
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -204,8 +220,9 @@ def stage(bodies, lit_lens, dist_lens, row_bits, device):
     *tabs, tab_ok = build_row_tables(put(np.asarray(lit_lens, np.int32)),
                                      put(np.asarray(dist_lens, np.int32)))
     return {"words": put(words.view("<i4")), "tabs": tuple(tabs), "tab_ok": tab_ok,
-            "row_ptr": put(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)),
-            "start": put(bits[:, 0]), "stop": put(bits[:, 1])}
+            "row_ptr": put(row_ptr), "start": put(bits[:, 0]), "stop": put(bits[:, 1]),
+            "nbits": put(np.array([b.size * 8 for b in bodies], np.int32)),
+            "blocks": put(blocks)}
 
 
 def _rev15(x: torch.Tensor) -> torch.Tensor:
@@ -218,9 +235,11 @@ def _rev15(x: torch.Tensor) -> torch.Tensor:
     return x >> 1
 
 
-def decode_plain(words, tabs, row_ptr, start, stop, max_cmds: int):
-    """Every row's decode at once in torch, one command per step.
-    Returns (cmds int32[R, max_cmds], ok bool[R], ncmds int32[R])."""
+def decode_plain(words, tabs, row_ptr, start, stop, nbits, blocks, max_cmds: int):
+    """Every row's decode at once in torch, one command per step (the
+    serial loop; ``nbits`` and ``blocks``, which only shape the kernel's
+    lanes and grid, are not read).  Returns (cmds int32[R, max_cmds], ok
+    bool[R], ncmds int32[R])."""
     dev = words.device
     m, nw = words.shape
     r = start.shape[0]
@@ -276,15 +295,17 @@ def decode_plain(words, tabs, row_ptr, start, stop, max_cmds: int):
     return cmds, ok, nreal
 
 
-def decode(words, tabs, row_ptr, start, stop, max_cmds: int):
+def decode(words, tabs, row_ptr, start, stop, nbits, blocks, max_cmds: int, rounds=None):
     """Decode every split row: ``words`` int32[M, W] member word rows,
     ``tabs`` the four tables of :func:`build_row_tables` (int32, M rows
-    each), ``row_ptr`` int32[M + 1], ``start``/``stop`` int32[R] bits.
-    Returns (cmds int32[R, max_cmds], ok bool[R], ncmds int32[R]).  A CPU
-    tensor takes :func:`decode_plain`; a CUDA tensor launches the kernel
-    (or raises)."""
+    each), ``row_ptr`` int32[M + 1], ``start``/``stop`` int32[R] bits,
+    ``nbits`` int32[M] and ``blocks`` int32[NB, 2] as :func:`stage` gives
+    them (every row spanning at most ``MAX_ROW_BITS``).  Returns (cmds int32[R, max_cmds], ok bool[R], ncmds int32[R]).
+    A CPU tensor takes :func:`decode_plain`; a CUDA tensor launches the
+    kernel (or raises), which also writes each row's synchronisation
+    rounds into ``rounds`` (int32[R]) where one is given."""
     if words.device.type == "cpu":
-        return decode_plain(words, tabs, row_ptr, start, stop, max_cmds)
+        return decode_plain(words, tabs, row_ptr, start, stop, nbits, blocks, max_cmds)
     m, nw = words.shape
     r = start.shape[0]
     _build.check_cuda("words", words, torch.int32, (m, nw))
@@ -294,12 +315,17 @@ def decode(words, tabs, row_ptr, start, stop, max_cmds: int):
     _build.check_cuda("row_ptr", row_ptr, torch.int32, (m + 1,))
     _build.check_cuda("start", start, torch.int32, (r,))
     _build.check_cuda("stop", stop, torch.int32, (r,))
+    _build.check_cuda("nbits", nbits, torch.int32, (m,))
+    _build.check_cuda("blocks", blocks, torch.int32, (blocks.shape[0], 2))
+    if rounds is not None:
+        _build.check_cuda("rounds", rounds, torch.int32, (r,))
     cmds = torch.empty((r, max_cmds), dtype=torch.int32, device=words.device)
     ok = torch.empty(r, dtype=torch.bool, device=words.device)
     ncmds = torch.empty(r, dtype=torch.int32, device=words.device)
     err = _build.lib().dtt_inflate_rows(
         words.data_ptr(), nw, *(t.data_ptr() for t in tabs), row_ptr.data_ptr(),
-        start.data_ptr(), stop.data_ptr(), cmds.data_ptr(), ok.data_ptr(),
-        ncmds.data_ptr(), m, max_cmds, _build.stream(words))
+        start.data_ptr(), stop.data_ptr(), nbits.data_ptr(), blocks.data_ptr(),
+        blocks.shape[0], cmds.data_ptr(), ok.data_ptr(), ncmds.data_ptr(),
+        None if rounds is None else rounds.data_ptr(), max_cmds, _build.stream(words))
     _build.launched("decode", err)
     return cmds, ok, ncmds

@@ -459,7 +459,8 @@ def _decode_on_device(buf: np.ndarray, dev: torch.device) -> bytes:
                               [metas[i][0][1] for i in huff],
                               [metas[i][0][2] for i in huff], rows, dev)
         cmds, ok, _ = inflate_cu.decode(st["words"], st["tabs"], st["row_ptr"],
-                                        st["start"], st["stop"], max_cmds)
+                                        st["start"], st["stop"], st["nbits"],
+                                        st["blocks"], max_cmds)
         counts = torch.diff(st["row_ptr"].to(torch.int64))
         if not bool((ok & torch.repeat_interleave(st["tab_ok"], counts)).all()):
             raise de.MalformedError("invalid stream")

@@ -8,16 +8,20 @@ tests).  This file imports no JAX, so it runs on a machine without it:
 
 Random and extreme inputs, odd shapes (P below one 1024-position chunk
 and P = 2^18, jumps past the mark path's staged head table, batches of 1
-and 9 rows, T = 1 and T off the literal-bits tile, strided payload rows
-aligned and not, matches running into the row end, with and without the
-hot lane); exact equality (integer kernels), slot values compared under
-their n-bit masks; gzip on the card at levels 1, 4, 6 and 9 equal to the
-CPU port.  The decode kernel against
-its plain version on archive rows (dynamic, stored, zero-run and fixed
-members, a flipped bit), the CRC kernel on chunks of member batches at
-lengths around the 256-byte chunk, and the sharded round trip on the card.
+and 9 rows, T = 1 and T off the literal-bits tile and off 16 positions,
+strided payload rows aligned and not, one symbol at every position,
+nothing on the path, matches running into the row end, with and without
+the hot lane); exact equality (integer kernels), slot values compared
+under their n-bit masks; gzip on the card at levels 1, 4, 6 and 9 equal
+to the CPU port.  The decode kernel against its plain version on archive
+rows (dynamic, stored, zero-run and fixed members, a flipped end-of-block,
+flipped bits inside interior rows, max_cmds around a row's count, rows of
+1-100 bits, rows outside the body), the CRC kernel on chunks of member
+batches at lengths around the 256-byte chunk, and the sharded round trip
+on the card.
 """
 
+import functools
 import gzip
 import pathlib
 import zlib
@@ -102,12 +106,31 @@ def _parse_arrays(rng, b, t, dev):
                  for a in (on_path, is_match, length, dist, batch))
 
 
-@pytest.mark.parametrize("b,t", [(1, 300), (9, 5000), (8, 130560)])
-def test_histograms_kernel(dev, b, t):
+@pytest.mark.parametrize("b,t,case", [
+    (1, 300, "random"), (9, 5000, "random"), (8, 130560, "random"), (2, 1, "random"),
+    (3, 4103, "random"), (9, 4103, "unaligned"), (8, 130560, "unaligned"),
+    (8, 130560, "one_literal"), (8, 130560, "one_match"), (4, 5000, "off_path")])
+def test_histograms_kernel(dev, b, t, case):
+    """Strided payload rows, 16-byte aligned or not ("unaligned"), T = 1
+    and T off a multiple of 16 (byte loads for misaligned rows and the
+    row end), every position the same literal or the same match on the
+    path (one bin takes every count), and no position on the path or a
+    match; every output bin written by the one launch."""
     on_path, is_match, length, dist, batch = _parse_arrays(
         np.random.default_rng(t), b, t, dev)
-    lit = batch[:, 64:]  # strided rows, as the payload of a batch
+    lit = batch[:, 64:] if case != "unaligned" else batch[:, 63:63 + t]
+    if case == "one_literal":
+        on_path, is_match = torch.ones_like(on_path), torch.zeros_like(is_match)
+        lit = torch.full_like(batch, 97)[:, 64:]
+    elif case == "one_match":
+        on_path = is_match = torch.ones_like(on_path)
+        length, dist = torch.full_like(length, 258), torch.full_like(dist, 1)
+    elif case == "off_path":
+        on_path, is_match = torch.zeros_like(on_path), torch.zeros_like(is_match)
+    before = _build.LAUNCHES["histograms"]
     got = hist_cu.histograms(on_path, is_match, length, dist, lit)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["histograms"] == before + 1
     want = hist_cu.histograms_plain(on_path, is_match, length, dist, lit)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -195,22 +218,36 @@ def test_gzip_on_card_matches_cpu(dev, level):
     assert gzip.decompress(out) == x
 
 
-def _archive_rows(dev, data, member_size, flip=False):
-    """Staged decode rows of the port's level-6 archive of ``data``; with
-    ``flip``, one bit of the first member's end-of-block code flipped."""
+@functools.lru_cache(maxsize=2)
+def _archive_plan(data, member_size):
     buf = np.frombuffer(sharded.sharded_gzip_compress(
         data, 6, member_size=member_size, device="cpu"), np.uint8)
-    metas, huff, rows, max_cmds = sharded.decode_plan(buf)
+    return sharded.decode_plan(buf)
+
+
+def _archive_rows(dev, data, member_size, flip=None, rows_of=None):
+    """Staged decode rows of the port's level-6 archive of ``data``; with
+    ``flip="eob"``, one bit of the first member's end-of-block code
+    flipped, with ``flip="interior"``, 40 random bits of every member's
+    first row; ``rows_of(rows)`` may replace the split rows."""
+    metas, huff, rows, max_cmds = _archive_plan(data, member_size)
     bodies = [metas[i][1].copy() for i in huff]
-    if flip:
+    if flip == "eob":
         bodies[0][-1] ^= 1 << 7 if bodies[0][-1] >> 7 else 1
+    elif flip == "interior":
+        rng = np.random.default_rng(11)
+        for body, r in zip(bodies, rows):
+            for bit in rng.integers(r[0][0], r[0][1] or body.size * 8, 40):
+                body[bit >> 3] ^= 1 << (bit & 7)
     st = inflate_cu.stage(bodies, [metas[i][0][1] for i in huff],
-                          [metas[i][0][2] for i in huff], rows, dev)
+                          [metas[i][0][2] for i in huff],
+                          rows if rows_of is None else rows_of(rows), dev)
     return st, max_cmds
 
 
 def _decode_both(st, max_cmds):
-    args = (st["words"], st["tabs"], st["row_ptr"], st["start"], st["stop"], max_cmds)
+    args = (st["words"], st["tabs"], st["row_ptr"], st["start"], st["stop"], st["nbits"],
+            st["blocks"], max_cmds)
     before = _build.LAUNCHES["decode"]
     got = inflate_cu.decode(*args)
     torch.cuda.synchronize()
@@ -231,10 +268,24 @@ def test_decode_kernel(dev, member_size):
     assert ok.all() and st["row_ptr"][-1] > st["row_ptr"].numel()
     assert torch.equal(ncmds, inflate.slot_counts_bits(cmds >> 26, st["stop"]))
     # the first member's final row decodes on into the zero padding
-    st, max_cmds = _archive_rows(dev, x, member_size, flip=True)
+    st, max_cmds = _archive_rows(dev, x, member_size, flip="eob")
     _, ok_bad, _ = _decode_both(st, max_cmds)
     last = int(st["row_ptr"][1]) - 1
     assert (~ok_bad).nonzero().flatten().tolist() == [last]
+    # flipped bits inside interior rows: invalid codes for the lanes
+    st, max_cmds = _archive_rows(dev, x, member_size, flip="interior")
+    _decode_both(st, max_cmds)
+    # max_cmds one below, at and one above the true count of a row
+    st, max_cmds = _archive_rows(dev, x, member_size)
+    c = int(ncmds[0])
+    for cap in (c - 1, c, c + 1):
+        _, ok_cap, n_cap = _decode_both(st, cap)
+        assert bool(ok_cap[0]) == (cap >= c) and int(n_cap[0]) == min(c, cap)
+    # rows of 1-100 bits: lane ranges shorter than a long command
+    lens = (1, 2, 5, 31, 32, 33, 47, 48, 63, 64, 65, 100)
+    st, _ = _archive_rows(dev, x, member_size, rows_of=lambda rows: [
+        [(r[0][0] + k, r[0][0] + k + n) for k in (0, 7) for n in lens] for r in rows])
+    _decode_both(st, 64)
 
 
 def test_decode_kernel_fixed_member(dev):
@@ -246,8 +297,10 @@ def test_decode_kernel_fixed_member(dev):
     cmds, ok, ncmds = _decode_both(st, len(x) + 2)
     assert ok.all() and int(ncmds[0]) <= len(x) + 1
     # rows starting before and far past the body read only clamped words
-    st = inflate_cu.stage([body, body], [ll] * 2, [dl] * 2,
-                          [[(-40, 0)], [(body.size * 8 + 4096, 0)]], dev)
+    past = body.size * 8 + 4096
+    st = inflate_cu.stage([body, body, body], [ll] * 3, [dl] * 3,
+                          [[(-40, 0)], [(past, 0)],
+                           [(-40, 300), (past, past + 500), (past + 10, past + 5)]], dev)
     _decode_both(st, 64)
 
 

@@ -170,7 +170,7 @@ def _port_decode(metas, huff, rows, max_cmds):
     st = inflate_cu.stage([metas[i][1] for i in huff], [metas[i][0][1] for i in huff],
                           [metas[i][0][2] for i in huff], rows, "cpu")
     return st, inflate_cu.decode(st["words"], st["tabs"], st["row_ptr"], st["start"],
-                                 st["stop"], max_cmds)
+                                 st["stop"], st["nbits"], st["blocks"], max_cmds)
 
 
 def _fields(cmds):
