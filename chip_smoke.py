@@ -33,19 +33,24 @@ Phases, each raising at its first failure:
      the reference's size and sha256 and by gzip.decompress, then
      sharded_gzip_decompress of it on the card, which must return the
      corpus with the decode and CRC kernels launched and no serial
-     fallback; cold and warm walls of both halves and the decode's stage
-     split;
+     fallback; cold and warm walls of both halves, the decode's stage
+     split, and the CRC stage: its calls a round trip (10), each running at
+     most 2 device kernels, and its wall in each half;
   7. the decode and CRC kernels against their plain versions on the card:
      the archive's split rows, one member's rows alone, a fixed-Huffman
      member, a member with one flipped bit (both must reject its final
      row), rows starting before and past a body, the archive with 40 bits
      flipped in every member's first row; the synchronisation rounds per
-     row of the archive; the CRC chunk registers of the decoded members
-     and of rows of lengths 0, 1, 255, 256, 257 and 130,560.
+     row of the archive; crc32_rows against its plain version on the
+     decode's 65 payload rows and on edge rows (lengths 0 to 130,560, with
+     init values), and against zlib.crc32 on rows with nonzero junk past
+     each length, aligned and misaligned (the kernel reads no byte past
+     a length).
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the path that uses them (the default
 level-6 gz.compress for the compression kernels, the sharded round trip
-for decode and CRC), errors, times and bounds; "ms" is a CUDA-event loop
+for decode and CRC), errors, times and bounds (the CRC's: the bytes up to
+each length read once); "ms" is a CUDA-event loop
 of launches, "device_ms" and "device_cold_ms" the kernels' own device
 time from a profile, L2-warm and with the L2 flushed before each launch.
 Exits nonzero, with no result, where CUDA is absent.
@@ -53,6 +58,7 @@ Exits nonzero, with no result, where CUDA is absent.
 
 from __future__ import annotations
 
+import collections
 import gzip
 import hashlib
 import json
@@ -82,7 +88,7 @@ FLUSH_BYTES = 64 << 20
 #: the CUDA kernels of csrc/ (device-side names in a profile)
 PORT_KERNELS = ("chunk_exit_kernel", "chunk_hop_kernel", "chunk_refine_kernel",
                 "hist_kernel", "litbits_tally_kernel", "litbits_scan_kernel", "gain_kernel",
-                "slots_kernel", "inflate_rows_kernel", "crc_chunks_kernel")
+                "slots_kernel", "inflate_rows_kernel", "crc_rows_kernel")
 #: (C-source, TPU kernel it replaces) per kernel wrapper
 SOURCES = {"mark_path": ("mark_path.cu", "decompress_tpu/ops/parse_pl.py:105"),
            "histograms": ("hist.cu", "decompress_tpu/ops/hist_pl.py:90"),
@@ -90,7 +96,7 @@ SOURCES = {"mark_path": ("mark_path.cu", "decompress_tpu/ops/parse_pl.py:105"),
            "gain": ("cost.cu", "decompress_tpu/ops/cost_pl.py:294"),
            "build_slots": ("pack_slots.cu", "decompress_tpu/ops/pack_pl.py:92"),
            "decode": ("inflate.cu", "decompress_tpu/ops/inflate_pl.py:415"),
-           "chunk_registers": ("crc.cu", "decompress_tpu/ops/checksum.py:217")}
+           "crc32_rows": ("crc.cu", "decompress_tpu/ops/checksum.py:217")}
 
 
 def card_line() -> str:
@@ -195,9 +201,11 @@ def bound_ms(args, outputs) -> float:
 
 
 def check_kernel(torch, name, kernel, plain, cases, norm, library=None, *, card,
-                 plain_iters=TIMING_ITERS) -> dict:
+                 plain_iters=TIMING_ITERS, moved_bytes=None) -> dict:
     """Kernel == plain version (exactly) on every case; times both, and
-    the library call where one computes the same function, on cases[0]."""
+    the library call where one computes the same function, on cases[0].
+    The bound moves ``moved_bytes``, where given, else every input and
+    output tensor once."""
     err = 0
     for args in cases:
         got = norm(kernel(*args))
@@ -214,7 +222,8 @@ def check_kernel(torch, name, kernel, plain, cases, norm, library=None, *, card,
     scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     cold, _ = device_split(torch, lambda: kernel(*main_args), flush=lambda: scratch.fill_(1))
     stat = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms(main_args, kernel(*main_args)), bound_by="bytes",
+                bound_ms=(bound_ms(main_args, kernel(*main_args)) if moved_bytes is None
+                          else 1e3 * moved_bytes / HBM_BYTES_PER_S), bound_by="bytes",
                 library_ms=library_ms, device_ms=sum(split.values()),
                 device_cold_ms=sum(cold.values()), device_kernels_per_call=kernels)
     lib = "" if library_ms is None else f", library call {library_ms:.4f} ms"
@@ -545,7 +554,7 @@ def sharded_path(torch, data: bytes, wrappers, card):
         raise AssertionError("sharded_gzip_decompress does not restore the input")
     if sharded.serial_fallbacks:
         raise AssertionError(f"serial route taken: {dict(sharded.serial_fallbacks)}")
-    missing = [n for n in ("decode", "chunk_registers") if launches_d[n] <= 0]
+    missing = [n for n in ("decode", "crc32_rows") if launches_d[n] <= 0]
     missing += [n for n, c in launches_c.items() if c <= 0 and n != "decode"]
     if missing:
         raise AssertionError(f"sharded round trip did not launch {missing}")
@@ -567,7 +576,55 @@ def sharded_path(torch, data: bytes, wrappers, card):
     finally:
         for label, (mod, attr) in stages.items():
             setattr(mod, attr, originals[label])
-    return archive, {n: launches_c[n] + launches_d[n] for n in wrappers}
+    launches = {n: launches_c[n] + launches_d[n] for n in wrappers}
+    crc_stage(torch, compress, decompress, launches["crc32_rows"], card)
+    return archive, launches
+
+
+def crc_stage(torch, compress, decompress, launches: int, card) -> None:
+    """The CRC stage of one more round trip: each call's wall (host clock,
+    synchronized) by half, then each call replayed TIMING_ITERS times under
+    the profiler to count its device kernels a call (copies not counted;
+    the memset is; a kernel the profiler recorded counts at least once)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from decompress_tpu_torch.ops import checksum
+
+    crc_batch = checksum.crc32_batch_device
+    calls = {"compress": [], "decompress": []}
+    half = ["compress"]
+
+    def recorded(data_2d, lengths):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = crc_batch(data_2d, lengths)
+        calls[half[0]].append((data_2d, lengths, time.perf_counter() - t))
+        return out
+
+    checksum.crc32_batch_device = recorded
+    try:
+        compress()
+        half[0] = "decompress"
+        decompress()
+    finally:
+        checksum.crc32_batch_device = crc_batch
+    kernels = []
+    for data_2d, lengths, _ in calls["compress"] + calls["decompress"]:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIMING_ITERS):
+                crc_batch(data_2d, lengths)
+            torch.cuda.synchronize()
+        records = collections.Counter(
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("Memcpy"))
+        kernels.append(sum(max(1, round(n / TIMING_ITERS)) for n in records.values()))
+    walls = {h: 1e3 * sum(dt for *_, dt in c) for h, c in calls.items()}
+    print(f"sharded CRC stage: {len(kernels)} calls a round trip ({len(calls['compress'])} "
+          f"compress, {len(calls['decompress'])} decompress), launches {launches}; device "
+          f"kernels a call {kernels}; wall compress {walls['compress']:.3f} ms, decompress "
+          f"{walls['decompress']:.3f} ms [{card}]", flush=True)
+    if len(kernels) != launches or max(kernels) > 2:
+        raise AssertionError("CRC: a call is not one launch of at most 2 device kernels")
 
 
 def decode_crc_checks(torch, dev, data: bytes, archive: bytes, card) -> dict:
@@ -627,35 +684,58 @@ def decode_crc_checks(torch, dev, data: bytes, archive: bytes, card) -> dict:
                                     inflate_cu.decode_plain, cases, lambda o: o,
                                     card=card, plain_iters=1)}
 
-    # CRC: the decoded members as the round trip's CRC sees them, and rows
-    # of lengths around the chunk size, all 130,560 bytes wide
+    # CRC: the decoded members as the round trip's CRC sees them (rows of
+    # the power-of-two payload width, zero past each length), and edge rows
     arr = np.frombuffer(data, np.uint8)
-    seg = 130_560
-    members = np.zeros((len(huff), seg), np.uint8)
-    lengths = np.zeros(len(huff), np.int64)
+    seg, width = 130_560, 1 << 17
+    members = np.zeros((len(huff), width), np.uint8)
+    lengths = np.zeros(len(huff), np.int32)
     for k in range(len(huff)):
         part = arr[k * seg:(k + 1) * seg]
         members[k, :part.size], lengths[k] = part, part.size
     payload = torch.from_numpy(members).to(dev)
-    main_chunks = checksum.back_aligned(payload, lengths).reshape(-1, checksum.CRC_CHUNK)
-    edge = np.array([0, 1, 255, 256, 257, seg])
+    d_lengths = torch.from_numpy(lengths).to(dev)
+    edge = np.array([0, 1, 15, 16, 17, 255, 256, 257, 4095, seg], np.int32)
     rows_e = np.zeros((edge.size, seg), np.uint8)
     for k, n in enumerate(edge):
-        rows_e[k, :n] = arr[:n]
-    rows_e = torch.from_numpy(rows_e).to(dev)
-    crcs = checksum.crc32_batch_device(rows_e, edge)
-    if crcs.tolist() != [zlib.crc32(arr[:n].tobytes()) for n in edge]:
+        rows_e[k, :n] = arr[k:k + n]
+    rng = np.random.default_rng(7)
+    init_e = torch.from_numpy(rng.integers(0, 1 << 32, edge.size)).to(dev)
+    crc_cases = [(payload, d_lengths), (torch.from_numpy(rows_e).to(dev),
+                                        torch.from_numpy(edge).to(dev), init_e)]
+    # zlib on rows with nonzero junk past each length, aligned and not
+    junk = np.where(np.arange(seg)[None, :] < edge[:, None], rows_e,
+                    rng.integers(1, 256, rows_e.shape, dtype=np.uint8))
+    d_junk = torch.from_numpy(junk).to(dev)
+    init_h = init_e.cpu().tolist()
+    for off in (0, 3):
+        lens = np.minimum(edge, seg - off)
+        got = crc_cu.crc32_rows(d_junk[:, off:], torch.from_numpy(lens).to(dev), init_e)
+        want = [zlib.crc32(junk[k, off:off + n].tobytes(), init_h[k]) for k, n in enumerate(lens)]
+        if got.tolist() != want:
+            raise AssertionError(f"crc32_rows differs from zlib.crc32 past junk (offset {off})")
+    crcs = checksum.crc32_batch_device(payload, lengths)
+    if crcs.tolist() != [zlib.crc32(members[k, :n].tobytes()) for k, n in enumerate(lengths)]:
         raise AssertionError("crc32_batch_device differs from zlib.crc32")
-    edge_chunks = checksum.back_aligned(rows_e, edge).reshape(-1, checksum.CRC_CHUNK)
-    # the library yardstick: the reference's float32 GF(2) product (before
-    # its parity) on the unpacked bits
+    print(f"crc32_rows: equal to zlib.crc32 on {len(huff)} payload rows and on {edge.size} "
+          f"rows with junk past each length, at offsets 0 and 3", flush=True)
+    # the library yardstick covers only the chunk-register step: the
+    # reference's float32 GF(2) product (before its parity) on the unpacked
+    # bits of the back-aligned payload
+    main_chunks = checksum.back_aligned(payload, lengths).reshape(-1, checksum.CRC_CHUNK)
     h = torch.from_numpy(checksum._crc_chunk_matrix()).to(dev).to(torch.float32)
     main_bits = ((main_chunks.to(torch.int32)[:, :, None]
                   >> torch.arange(8, device=dev, dtype=torch.int32)) & 1).reshape(
                       main_chunks.shape[0], -1).to(torch.float32)
-    stats["chunk_registers"] = check_kernel(
-        torch, "chunk_registers", crc_cu.chunk_registers, crc_cu.chunk_registers_plain,
-        [(main_chunks,), (edge_chunks,)], lambda o: (o,), lambda: main_bits @ h, card=card)
+    # the bytes the function must move: each row's bytes up to its length,
+    # the lengths, and the int64 results
+    moved = int(lengths.sum()) + d_lengths.nbytes + 8 * len(huff)
+    stats["crc32_rows"] = check_kernel(
+        torch, "crc32_rows", crc_cu.crc32_rows, crc_cu.crc32_rows_plain, crc_cases,
+        lambda o: (o,), lambda: main_bits @ h, card=card, moved_bytes=moved)
+    stats["crc32_rows"]["library_covers"] = "chunk registers only (float32 bits @ H)"
+    if stats["crc32_rows"]["device_kernels_per_call"] > 2:
+        raise AssertionError("crc32_rows: a call ran more than 2 device kernels")
     return stats
 
 
@@ -697,9 +777,9 @@ def main() -> int:
 
     # ---- 6. the sharded round trip ----
     archive, sharded_launches = sharded_path(
-        torch, data, wrappers + ("decode", "chunk_registers"), card)
+        torch, data, wrappers + ("decode", "crc32_rows"), card)
     launches.update(decode=sharded_launches["decode"],
-                    chunk_registers=sharded_launches["chunk_registers"])
+                    crc32_rows=sharded_launches["crc32_rows"])
 
     # ---- 7. the decode and CRC kernels against their plain versions ----
     stats.update(decode_crc_checks(torch, dev, data, archive, card))

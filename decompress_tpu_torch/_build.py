@@ -34,7 +34,7 @@ LIB_NAME = "libdecompress_tpu_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry points: name -> argument types (pointers, ints, the stream last)
 _SIGNATURES = {
     "dtt_mark_path": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -46,7 +46,7 @@ _SIGNATURES = {
     "dtt_gain": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "dtt_inflate_rows": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                          _P, _P, _P, _P, _I, _P),
-    "dtt_crc_chunks": (_P, _P, _P, _I, _P),
+    "dtt_crc_rows": (_P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

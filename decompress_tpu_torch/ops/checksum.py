@@ -1,14 +1,17 @@
-"""CRC-32 on the card: per-chunk registers, then a GF(2) combine tree.
+"""CRC-32 on the card.
 
 Counterpart of ``decompress_tpu/ops/checksum.py`` (CRC-32 only; Adler-32
-waits for zlib framing).  The CRC register is linear over GF(2) in the
-message bits, so every 256-byte chunk's zero-init register is computed
-independently (``crc_cu.chunk_registers``, the CUDA kernel), and chunk
-pairs are folded by "advance by k zero bytes" matrices, level by level,
-in plain torch as in the reference.  Rows are back-aligned: leading zero
-bytes are no-ops for a zero register, so any length maps onto a
-power-of-two number of chunks; the init and final XOR are a host GF(2)
-correction per row.
+waits for zlib framing).  :func:`crc32_batch_device` and :func:`crc32`
+are ``crc_cu.crc32_rows`` (one CUDA kernel computes each row's whole
+CRC-32, init and final XOR included) and one copy to the host.
+
+The CRC register is linear over GF(2) in the message bits.  The
+reference's layout, which ``crc_cu.crc32_rows_plain`` keeps: rows
+back-aligned (:func:`back_aligned`; leading zero bytes are no-ops for a
+zero register, so any length maps onto a power-of-two number of
+chunks), every 256-byte chunk's zero-init register computed
+independently, and chunk pairs folded by "advance by k zero bytes"
+matrices, level by level (:func:`_combine_tree`).
 
 The host GF(2) helpers are copies of the reference's (numpy);
 ``tests/test_torch_checksum.py`` holds them and every result equal to
@@ -92,27 +95,6 @@ def crc_advance(crc_reg: int, nbytes: int) -> int:
     return crc_reg
 
 
-def crc_advance_batch(regs: np.ndarray, nbytes: np.ndarray) -> np.ndarray:
-    """Vectorized :func:`crc_advance`: row i's register advanced by
-    ``nbytes[i]`` zero bytes, one 32x32 GF(2) matrix per length bit."""
-    regs = np.asarray(regs, np.uint64).copy()
-    nbytes = np.asarray(nbytes, np.int64)
-    if regs.size == 0:
-        return regs.astype(np.uint32)
-    maxn = int(nbytes.max())
-    k = 0
-    while (1 << k) <= maxn:
-        if int(((nbytes >> k) & 1).max()):
-            mat = _crc_shift_pow2(k).astype(np.uint64)
-            out = np.zeros_like(regs)
-            for j in range(32):
-                out ^= np.where((regs >> np.uint64(j)) & np.uint64(1),
-                                mat[j], np.uint64(0))
-            regs = np.where((nbytes >> k) & 1 == 1, out, regs)
-        k += 1
-    return regs.astype(np.uint32)
-
-
 @functools.cache
 def _crc_chunk_matrix(chunk: int = CRC_CHUNK) -> np.ndarray:
     """H: int8[8*chunk, 32]; register contribution of a zero-init chunk is
@@ -162,26 +144,7 @@ def _combine_tree(partial: torch.Tensor) -> torch.Tensor:
     return partial[:, 0]
 
 
-def _registers(rows: torch.Tensor) -> np.ndarray:
-    """Zero-init CRC registers of back-aligned uint8[M, P] rows (P a
-    power-of-two multiple of CRC_CHUNK), as uint64 numpy."""
-    m, p = rows.shape
-    bits = crc_cu.chunk_registers(rows.reshape(-1, CRC_CHUNK))
-    reg_bits = _combine_tree(bits.reshape(m, p // CRC_CHUNK, 32))
-    weights = torch.ones(32, dtype=torch.int64, device=rows.device) << torch.arange(
-        32, device=rows.device)
-    return (reg_bits.to(torch.int64) * weights).sum(1).cpu().numpy().astype(np.uint64)
-
-
-def _finish(regs: np.ndarray, lengths: np.ndarray) -> np.ndarray:
-    """CRC-32 values from zero-init registers: fold in the all-ones
-    init register, advanced past each row's bytes, and the final XOR."""
-    init = crc_advance_batch(np.full(regs.size, 0xFFFFFFFF, np.uint64), lengths)
-    out = (init.astype(np.uint64) ^ regs ^ np.uint64(0xFFFFFFFF)) & np.uint64(0xFFFFFFFF)
-    return np.where(lengths == 0, 0, out).astype(np.uint32)
-
-
-def back_aligned(data_2d: torch.Tensor, lengths: np.ndarray) -> torch.Tensor:
+def back_aligned(data_2d: torch.Tensor, lengths) -> torch.Tensor:
     """uint8[M, P] rows, P a power-of-two multiple of CRC_CHUNK, holding
     row i's first ``lengths[i]`` bytes at their end: the reference's
     zero-prefixed buffer rolled by ``L - lengths[i]``, so bytes at and past
@@ -191,7 +154,7 @@ def back_aligned(data_2d: torch.Tensor, lengths: np.ndarray) -> torch.Tensor:
     dev = data_2d.device
     # rolled[i, j] = padded[i, (j - (l - len_i)) mod p], where padded holds
     # the row's l bytes at its end
-    shift = torch.from_numpy(l - np.asarray(lengths, np.int64)).to(dev)
+    shift = l - torch.as_tensor(lengths, dtype=torch.int64).to(dev)
     col = torch.remainder(torch.arange(p, device=dev)[None, :] - shift[:, None], p)
     col = col - (p - l)
     rolled = torch.gather(data_2d, 1, col.clamp(0, l - 1))
@@ -200,24 +163,24 @@ def back_aligned(data_2d: torch.Tensor, lengths: np.ndarray) -> torch.Tensor:
 
 def crc32_batch_device(data_2d: torch.Tensor, lengths) -> np.ndarray:
     """CRC-32 of each row's first ``lengths[i]`` bytes of a uint8[M, L]
-    tensor, on its device; uint32[M] numpy.  Bytes at and past
-    ``lengths[i]`` MUST be zero (see :func:`back_aligned`); decoded
-    payloads and member batches satisfy this."""
-    lengths = np.asarray(lengths, np.int64)
-    return _finish(_registers(back_aligned(data_2d, lengths)), lengths)
+    tensor (``lengths`` host integers or a tensor), on its device:
+    :func:`crc_cu.crc32_rows` and one copy to the host; uint32[M] numpy.
+    On the CPU (the plain version) bytes at and past ``lengths[i]`` MUST
+    be zero; decoded payloads and member batches satisfy this."""
+    if isinstance(lengths, torch.Tensor):
+        lengths = lengths.to(data_2d.device, torch.int32)
+    else:
+        lengths = torch.from_numpy(np.asarray(lengths, np.int32)).to(data_2d.device)
+    return crc_cu.crc32_rows(data_2d, lengths).cpu().numpy().astype(np.uint32)
 
 
 def crc32(data, value: int = 0, *, device="cuda") -> int:
     """CRC-32 of ``data`` on ``device``; drop-in for ``zlib.crc32``."""
     arr = np.frombuffer(bytes(data), dtype=np.uint8) if isinstance(
         data, (bytes, bytearray, memoryview)) else np.asarray(data, dtype=np.uint8)
-    n = arr.size
-    if n == 0:
+    if arr.size == 0:
         return value
-    p = _padded_len(n)
-    padded = np.zeros((1, p), dtype=np.uint8)
-    padded[0, p - n:] = arr
-    reg = int(_registers(torch.from_numpy(padded).to(device))[0])
-    # fold in init/xorout (and a previous running crc as initial register)
-    init = (value ^ 0xFFFFFFFF) & 0xFFFFFFFF
-    return (crc_advance(init, n) ^ reg ^ 0xFFFFFFFF) & 0xFFFFFFFF
+    row = torch.from_numpy(arr.reshape(1, -1).copy()).to(device)
+    lengths = torch.tensor([arr.size], dtype=torch.int32).to(device)
+    init = torch.tensor([value & 0xFFFFFFFF], dtype=torch.int64).to(device)
+    return int(crc_cu.crc32_rows(row, lengths, init)[0])

@@ -18,9 +18,10 @@ Counterpart of ``decompress_tpu/parallel/sharded.py`` on one device.
 
 Archives the card path does not cover, as the host reads them from the
 index and the block headers before anything goes to the card (no index,
-the legacy command-stride TS index, multi-block members or trees too
-deep for the decode tables), take a serial route through the standard
-library's ``zlib``.  Each use adds one to ``serial_fallbacks[reason]``,
+the legacy command-stride TS index, multi-block members, trees too
+deep for the decode tables, a row too long for the decode kernel, or a
+row command count that saturates the index), take a serial route
+through the standard library's ``zlib``.  Each use adds one to ``serial_fallbacks[reason]``,
 so a fallback is always visible; the port's own archives never take it.
 Once the card has decoded, a rejected row or a member whose CRC-32 or
 length does not match raises ``de.MalformedError``: the card's result
@@ -52,6 +53,8 @@ SPLIT_STRIDE = 2048
 #: bit stride of the split points: every row spans at most SPLIT_BITS + 48
 #: stream bits
 SPLIT_BITS = 8192
+#: the TB index's u16 commands-per-row field saturates here
+TB_CMDS_CAP = 65535
 
 #: serial-route uses by reason; stays empty for the port's own archives
 serial_fallbacks: collections.Counter = collections.Counter()
@@ -176,9 +179,9 @@ def _encode_tb(split_rows: list, ncmds: list, stride: int) -> bytes | None:
         if valid and total:
             maxc = max(maxc, int(total) - prev_ci)
         elif not valid:
-            maxc = min(int(total), 65535) if total else 0
+            maxc = min(int(total), TB_CMDS_CAP) if total else 0
         out.append(len(deltas).to_bytes(2, "little")
-                   + min(maxc, 65535).to_bytes(2, "little")
+                   + min(maxc, TB_CMDS_CAP).to_bytes(2, "little")
                    + bytes(deltas))
     return b"".join(out)
 
@@ -388,7 +391,9 @@ def decode_plan(buf: np.ndarray):
     the card; ``rows[k]`` the (start, stop) bits of the k-th of them's
     split rows (stop 0 = to end-of-block); ``max_cmds`` the command
     capacity of a row.  Raises _Serial for what the card path does not
-    cover, and for split bits outside a member's body."""
+    cover: split bits outside a member's body, a row longer than
+    ``inflate_cu.MAX_ROW_BITS``, and a member whose recorded row maximum
+    is the TB field's saturated ``TB_CMDS_CAP``."""
     try:
         sizes, splits, tb = _read_index_ex(buf)
     except (de.MalformedError, ValueError) as e:
@@ -425,12 +430,18 @@ def decode_plan(buf: np.ndarray):
     rows = []
     for i in huff:
         start = metas[i][0][3]
+        end = metas[i][1].size * 8
         bits = [start] + [t[0] for t in splits[i] if t[0] > 0]
-        if any(b <= a for a, b in zip(bits, bits[1:])) or bits[-1] >= metas[i][1].size * 8:
+        if any(b <= a for a, b in zip(bits, bits[1:])) or bits[-1] >= end:
             raise _Serial("corrupt split index")
+        if max(b - a for a, b in zip(bits, bits[1:] + [end])) > inflate_cu.MAX_ROW_BITS:
+            raise _Serial("row longer than the decode kernel's bit range")
         rows.append(list(zip(bits, bits[1:] + [0])))
-    max_cmds = max(tb["max_cmds"][i] for i in huff) + 4
-    return metas, huff, rows, max_cmds
+    caps = [tb["max_cmds"][i] for i in huff]
+    if max(caps) >= TB_CMDS_CAP:
+        # the writer saturates the field: the real count is unknown
+        raise _Serial("row command count over the index's u16 cap")
+    return metas, huff, rows, max(caps) + 4
 
 
 def sharded_gzip_decompress(archive, *, device="cuda") -> bytes:
@@ -478,8 +489,8 @@ def _decode_on_device(buf: np.ndarray, dev: torch.device) -> bytes:
         out_len = lz77._ceil_pow2(max(metas[i][3] for i in huff))
         payload, lengths = inflate.expand_commands(
             mem >> 26, mem & 0x3FF, (mem >> 10) & 0xFFFF, out_len)
-        lengths = lengths.cpu().numpy()
         crcs = checksum.crc32_batch_device(payload, lengths)
+        lengths = lengths.cpu().numpy()
         payload = payload.cpu().numpy()
         for k, i in enumerate(huff):
             _, _, crc, isize = metas[i]

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device time of the port's mark-path, literal-bits, histograms and
-decode stages, split by CUDA kernel, for one checkout of
+"""Device time of the port's mark-path, literal-bits, histograms, decode
+and CRC-32 stages, split by CUDA kernel, and the walls of the sharded
+round trip and its CRC stage, for one checkout of
 ``decompress_tpu_torch``, on one card.
 
     python3 scripts/torch_kernel_split.py [ROOT]
@@ -19,21 +20,31 @@ prefix sum: ``cost_cu.litbits_pref`` where the package has it, else the
 ``litbits`` kernel followed by ``zeros_like``, ``cumsum`` and ``cat``;
 the decode passes ``stage``'s ``nbits`` and ``blocks`` where the package
 stages them, and prints the synchronisation rounds per row where its
-kernel reports them.  Prints one JSON line: the card's name and power
-limit, and per stage the CUDA-event ms per call and the device ms per
-call of every device kernel it launched (profiler, 50 calls), L2-warm and
-with 64 MB overwritten before each call (cold).  Exits 2 without CUDA.
+kernel reports them.  The CRC stage is ``checksum.crc32_batch_device`` on
+the arguments the sharded decode passes it (65 payload rows), with the
+copy of its result to the host; where the package has
+``crc_cu.crc32_rows``, that kernel is also timed alone with each block
+size (1, 2, 4 and 8 sub-spans).  The sharded round trip runs
+``WALL_RUNS`` more times, warm, each CRC call timed on the host clock
+(synchronized), for the median walls of both halves and of their CRC
+stages.  Prints one JSON line: the card's name and power limit, and per
+stage the CUDA-event ms per call and the device ms per call of every
+device kernel it launched (profiler, 50 calls), L2-warm and with 64 MB
+overwritten before each call (cold).  Exits 2 without CUDA.
 """
 
 from __future__ import annotations
 
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
+import time
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 ITERS = 50
+WALL_RUNS = 5
 FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
 
@@ -88,6 +99,46 @@ def measure(torch, fn) -> dict:
             "device_cold_ms": sum(cold.values()), "cold_by_kernel": cold}
 
 
+def sharded_walls(torch, sharded, checksum, data: bytes, archive: bytes) -> dict:
+    """Median warm walls (ms) of WALL_RUNS sharded round trips and of the
+    CRC calls inside each half, every CRC call timed on the host clock
+    between synchronizations; with the arguments of the decode's CRC."""
+    crc_batch = checksum.crc32_batch_device
+    spent, calls = [], []
+
+    def timed(data_2d, lengths):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = crc_batch(data_2d, lengths)
+        spent.append(time.perf_counter() - t)
+        calls.append((data_2d, lengths))
+        return out
+
+    halves = {"compress": lambda: sharded.sharded_gzip_compress(data, 6, device="cuda"),
+              "decompress": lambda: sharded.sharded_gzip_decompress(archive, device="cuda")}
+    walls = {f"{h}{part}": [] for h in halves for part in ("", "_crc")}
+    checksum.crc32_batch_device = timed
+    try:
+        for _ in range(WALL_RUNS):
+            for half, fn in halves.items():
+                spent.clear()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[half].append(1e3 * (time.perf_counter() - t))
+                walls[f"{half}_crc"].append(1e3 * sum(spent))
+                walls[f"{half}_crc_calls"] = len(spent)
+    finally:
+        checksum.crc32_batch_device = crc_batch
+    out = {k: v for k, v in walls.items() if not isinstance(v, list)}
+    for k, v in walls.items():
+        if isinstance(v, list):
+            out[k] = {"median": statistics.median(v), "runs": v}
+    out["decode_args"] = calls[-1]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -99,7 +150,8 @@ def main() -> int:
     import numpy as np
 
     from decompress_tpu_torch import _build, de
-    from decompress_tpu_torch.ops import cost_cu, hist_cu, inflate_cu, lz77, parse_cu
+    from decompress_tpu_torch.ops import (checksum, cost_cu, crc_cu, hist_cu, inflate_cu, lz77,
+                                          parse_cu)
     from decompress_tpu_torch.parallel import sharded
 
     if not pathlib.Path(de.__file__).resolve().is_relative_to(root):
@@ -153,8 +205,23 @@ def main() -> int:
             return bits, torch.cat([torch.zeros_like(bits[:, :1]),
                                     torch.cumsum(bits, 1, dtype=torch.int32)], 1)
 
+    crc_stage = sharded_walls(torch, sharded, checksum, data, archive)
+    crc_args = crc_stage.pop("decode_args")
+    crc = measure(torch, lambda: checksum.crc32_batch_device(*crc_args))
+    if hasattr(crc_cu, "crc32_rows"):
+        spans = crc_cu._spans
+        rows_args = (crc_args[0], torch.as_tensor(crc_args[1], dtype=torch.int32).to(dev))
+        crc["by_block_size"] = {}
+        for k in (1, 2, 4, 8):
+            crc_cu._spans = lambda m, width, k=k: k
+            got = measure(torch, lambda: crc_cu.crc32_rows(*rows_args))
+            crc["by_block_size"][k] = {key: got[key] for key in ("device_ms", "device_cold_ms")}
+        crc_cu._spans = spans
+        crc["block_size"] = spans(*crc_args[0].shape)
+
     print(json.dumps({
         "root": str(root), "card": card, "shape": list(g2.shape),
+        "crc": crc, "sharded_walls": crc_stage,
         "mark_path": measure(torch, lambda: parse_cu.mark_path(g2)),
         "litbits_and_prefix": measure(torch, prefix),
         "histograms": measure(torch, lambda: hist_cu.histograms(*hist_args)),

@@ -16,9 +16,9 @@ under their n-bit masks; gzip on the card at levels 1, 4, 6 and 9 equal
 to the CPU port.  The decode kernel against its plain version on archive
 rows (dynamic, stored, zero-run and fixed members, a flipped end-of-block,
 flipped bits inside interior rows, max_cmds around a row's count, rows of
-1-100 bits, rows outside the body), the CRC kernel on chunks of member
-batches at lengths around the 256-byte chunk, and the sharded round trip
-on the card.
+1-100 bits, rows outside the body), the CRC kernel on rows of lengths
+around its 16-byte pieces with init values and junk past each length,
+and the sharded round trip on the card.
 """
 
 import functools
@@ -306,18 +306,31 @@ def test_decode_kernel_fixed_member(dev):
 
 @pytest.mark.parametrize("width", [300, 130560])
 def test_crc_kernel(dev, width):
+    """crc32_rows on the card: equal to its plain version on zero-tailed
+    rows and to zlib with init values, nonzero junk past each length and
+    rows misaligned by a strided view; one launch a call."""
     rng = np.random.default_rng(width)
-    lengths = np.array([0, 1, 255, 256, 257, width])
-    data = np.zeros((lengths.size, width), np.uint8)
+    lengths = np.array([0, 1, 15, 16, 17, 255, 256, 257, width - 3, width])
+    data = np.zeros((lengths.size, width + 7), np.uint8)
     for i, n in enumerate(lengths):
         data[i, :n] = rng.integers(0, 256, n, dtype=np.uint8)
-    chunks = torch.from_numpy(data).to(dev)[:, : width // 256 * 256].reshape(-1, 256)
-    before = _build.LAUNCHES["chunk_registers"]
-    got = crc_cu.chunk_registers(chunks.contiguous())
+    init = rng.integers(0, 1 << 32, lengths.size)
+    rows = torch.from_numpy(data).to(dev)[:, :width]
+    d_len = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    d_init = torch.from_numpy(init).to(dev)
+    before = _build.LAUNCHES["crc32_rows"]
+    got = crc_cu.crc32_rows(rows, d_len, d_init)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["chunk_registers"] == before + 1
-    assert torch.equal(got, crc_cu.chunk_registers_plain(chunks))
-    crcs = checksum.crc32_batch_device(torch.from_numpy(data).to(dev), lengths)
+    assert _build.LAUNCHES["crc32_rows"] == before + 1
+    assert torch.equal(got, crc_cu.crc32_rows_plain(rows, d_len, d_init))
+    junk = np.where(np.arange(width + 7)[None, :] < lengths[:, None], data,
+                    rng.integers(1, 256, data.shape, dtype=np.uint8))
+    for off in (0, 5):
+        shifted = torch.from_numpy(junk).to(dev)[:, off:]
+        want = [zlib.crc32(junk[i, off:off + n].tobytes(), int(init[i]))
+                for i, n in enumerate(np.minimum(lengths, width + 7 - off))]
+        assert crc_cu.crc32_rows(shifted, d_len, d_init).tolist() == want
+    crcs = checksum.crc32_batch_device(rows, lengths)
     assert crcs.tolist() == [zlib.crc32(data[i, :n].tobytes()) for i, n in enumerate(lengths)]
 
 

@@ -15,9 +15,15 @@ plain PyTorch versions of the kernels on the CPU) against the reference
   legacy command-stride index, split bits past the members' bodies and a
   member with a reserved block type take the serial route and are counted
   in ``serial_fallbacks``; a row the decode rejects and a corrupt member
-  CRC raise without it.
+  CRC raise without it;
+* a 2^19-byte member whose final split row holds more than 65,535
+  commands (the TB index's u16 row maximum saturates): byte-identical to
+  the reference's archive and decoded by the counted serial route, as
+  the reference decodes it; a row past the decode kernel's bit range is
+  routed by the plan, not raised by staging.
 """
 
+import functools
 import gzip
 import zlib
 
@@ -31,7 +37,7 @@ from decompress_tpu.ops import bitpack as ref_bitpack
 from decompress_tpu.ops import lz77 as ref_lz77
 from decompress_tpu.parallel import sharded as ref
 from decompress_tpu_torch import de, gz
-from decompress_tpu_torch.ops import bitpack, lz77
+from decompress_tpu_torch.ops import bitpack, inflate_cu, lz77
 from decompress_tpu_torch.parallel import sharded
 
 MEMBER = 4096
@@ -230,3 +236,45 @@ def test_card_decode_failure_raises(no_serial):
     with pytest.raises(de.MalformedError, match="CRC-32"):
         sharded.sharded_gzip_decompress(bytes(bad_crc), device="cpu")
     assert not sharded.serial_fallbacks
+
+
+@functools.cache
+def _long_row_pair():
+    """(input, port archive, reference archive) of one 2^19-byte member
+    of random lowercase letters: its final split row holds more than
+    65,535 commands, so the TB index's u16 row maximum saturates."""
+    x = np.random.default_rng(0).integers(97, 123, 1 << 19, dtype=np.uint8).tobytes()
+    return (x, sharded.sharded_gzip_compress(x, 4, member_size=1 << 19, device="cpu"),
+            ref.sharded_gzip_compress(x, 4, member_size=1 << 19))
+
+
+def test_saturated_row_count_takes_serial_route():
+    """The row maximum recorded as the u16 cap is unknown, not a size:
+    the archive decodes by the counted serial route, as the reference
+    decodes it, and is byte-identical to the reference's."""
+    x, arch, want = _long_row_pair()
+    assert arch == want and zlib.decompress(arch, 31) == x
+    sharded.serial_fallbacks.clear()
+    assert sharded.sharded_gzip_decompress(arch, device="cpu") == x
+    assert sharded.serial_fallbacks == {"row command count over the index's u16 cap": 1}
+    assert ref.sharded_gzip_decompress(arch) == x
+    buf = np.frombuffer(arch, np.uint8)
+    assert sharded._read_index_ex(buf)[2]["max_cmds"] == [sharded.TB_CMDS_CAP]
+    with pytest.raises(sharded._Serial, match="u16 cap"):
+        sharded.decode_plan(buf)
+
+
+def test_row_past_kernel_bit_range_is_routed(monkeypatch):
+    """A row longer than the decode kernel's int32 bit range is routed
+    by the plan before anything is staged, not raised by ``stage``: the
+    bound is lowered below the archive's 502,339-bit final row, since a
+    real row of 2^30 bits needs a member body over 2^27 bytes."""
+    x, arch, _ = _long_row_pair()
+    buf = np.frombuffer(arch, np.uint8)
+    monkeypatch.setattr(inflate_cu, "MAX_ROW_BITS", 500_000)
+    with pytest.raises(sharded._Serial, match="bit range"):
+        sharded.decode_plan(buf)
+    monkeypatch.setattr(inflate_cu, "stage", lambda *a: pytest.fail("staged"))
+    sharded.serial_fallbacks.clear()
+    assert sharded.sharded_gzip_decompress(arch, device="cpu") == x
+    assert sharded.serial_fallbacks == {"row longer than the decode kernel's bit range": 1}
