@@ -45,7 +45,16 @@ Phases, each raising at its first failure:
      decode's 65 payload rows and on edge rows (lengths 0 to 130,560, with
      init values), and against zlib.crc32 on rows with nonzero junk past
      each length, aligned and misaligned (the kernel reads no byte past
-     a length).
+     a length);
+  8. zlib framing and the one-shot decode: zl.deflate of the corpus at
+     level 6 on the card (its five compression kernels launched in its
+     run, counts set to 0 just before it) and sharded_zlib_compress of
+     it, each checked against the reference's size and sha256 and by
+     zlib.decompress and the port's zl.inflate; the port's gz.decompress
+     of phase 4's level-6 gzip; cold and warm walls of each; Adler-32 on
+     the card (ops.checksum.adler32) against zlib.adler32 on the corpus,
+     on lengths 0 to 5,553 and with a start value, with its device time
+     L2-warm and cold against its byte bound.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the path that uses them (the default
 level-6 gz.compress for the compression kernels, the sharded round trip
@@ -77,6 +86,11 @@ EXPECT = {
 }
 #: level-6 sharded archive of the 8 MiB corpus by the reference JAX package
 SHARDED_EXPECT = (2920438, "62c7742f29bb8256dd846422c895955fb94149d423b1b6a33f79d12f420941f9")
+#: the reference's level-6 zl.deflate and sharded_zlib_compress of the corpus
+ZL_EXPECT = (2854685, "867f04b6e8d6f5af6af609c852ab2d22819744e0fc20dc097eb7676e72f143a2")
+SHARDED_ZL_EXPECT = (2916197, "f99b46c27df2da6404a8ca7dfe04a12e08f66af07efde06eb3e0e483ea0c0c85")
+#: Adler-32 lengths checked against zlib.adler32 (chunk and NMAX edges)
+ADLER_LENGTHS = (0, 1, 511, 512, 513, 5552, 5553)
 #: device-memory rate of an H100 SXM (bytes/s), for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 #: hot-stride distances for the gain checks' hot lane
@@ -380,10 +394,10 @@ def kernel_checks(torch, dev, arr, card) -> dict:
     return stats
 
 
-def main_path(torch, data: bytes, level, wrappers, card) -> dict:
+def main_path(torch, data: bytes, level, wrappers, card) -> tuple[dict, bytes]:
     """Phase 4 for one level (None = the default): a warm-up run, then a
     run with every launch count set to 0 just before it; checks the
-    bytes and returns the counts of the named ``wrappers``."""
+    bytes and returns the counts of the named ``wrappers`` and the gzip."""
     from decompress_tpu_torch import _build, gz
 
     def run():
@@ -412,7 +426,7 @@ def main_path(torch, data: bytes, level, wrappers, card) -> dict:
         raise AssertionError(f"{name} path did not launch {missing}")
     print(f"main path wall, {name}: cold {cold_s:.4f} s, warm {warm_s:.4f} s = "
           f"{len(data) / warm_s / 1e6:.2f} MB/s [{card}]", flush=True)
-    return launches
+    return launches, out
 
 
 def stage_split(torch, data: bytes, card, runs: int = 3) -> None:
@@ -739,6 +753,130 @@ def decode_crc_checks(torch, dev, data: bytes, archive: bytes, card) -> dict:
     return stats
 
 
+def timed_call(torch, fn):
+    """(fn(), host seconds) with the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def cold_warm(torch, fn, wrappers=()):
+    """fn() run cold, then warm with every launch count set to 0 just
+    before it: (output, cold s, warm s, launches of ``wrappers``)."""
+    from decompress_tpu_torch import _build
+
+    _, cold = timed_call(torch, fn)
+    _build.LAUNCHES.clear()
+    out, warm = timed_call(torch, fn)
+    return out, cold, warm, {n: _build.LAUNCHES[n] for n in wrappers}
+
+
+def device_total(torch, fn, flush=None, iters: int = TIMING_ITERS) -> float:
+    """Device ms per call of every kernel and copy fn() runs (profiled);
+    with ``flush``, flush() runs before each call and its own device time,
+    profiled alone, is taken off."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def total(f):
+        f()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                f()
+            torch.cuda.synchronize()
+        return sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+
+    if flush is None:
+        return total(fn)
+    return total(lambda: (flush(), fn())) - total(flush)
+
+
+def zlib_path(torch, dev, data: bytes, gz_out: bytes, wrappers, card) -> None:
+    """Phase 8: zlib framing on the card, the one-shot host decode, and
+    Adler-32 on the card."""
+    import zlib
+
+    import numpy as np
+
+    from decompress_tpu_torch import gz, zl
+    from decompress_tpu_torch.ops import checksum
+    from decompress_tpu_torch.parallel import sharded
+
+    def check(label, out, expect):
+        sha = hashlib.sha256(out).hexdigest()
+        print(f"zlib: {label} of {len(data)} bytes -> {len(out)} bytes sha256 {sha}",
+              flush=True)
+        if (len(out), sha) != expect:
+            raise AssertionError(f"{label} differs from the reference: {len(out)} "
+                                 f"bytes, sha256 {sha}")
+        if zlib.decompress(out) != data:
+            raise AssertionError(f"zlib.decompress does not restore {label}")
+
+    out, cold, warm, launches = cold_warm(torch, lambda: zl.deflate(data, device="cuda"),
+                                          wrappers)
+    check("zl.deflate level 6", out, ZL_EXPECT)
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"zl.deflate did not launch {missing}")
+    print(f"zlib: zl.deflate launches {launches}; wall cold {cold:.4f} s, warm "
+          f"{warm:.4f} s = {len(data) / warm / 1e6:.2f} MB/s [{card}]", flush=True)
+    decoded, dcold, dwarm, _ = cold_warm(torch, lambda: zl.inflate(out))
+    if decoded != data:
+        raise AssertionError("zl.inflate does not restore zl.deflate's stream")
+
+    archive, scold, swarm, slaunches = cold_warm(
+        torch, lambda: sharded.sharded_zlib_compress(data, 6, device="cuda"), wrappers)
+    check("sharded_zlib_compress level 6", archive, SHARDED_ZL_EXPECT)
+    missing = [n for n, c in slaunches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"sharded_zlib_compress did not launch {missing}")
+    print(f"zlib: sharded_zlib_compress launches {slaunches}; wall cold {scold:.4f} s, "
+          f"warm {swarm:.4f} s = {len(data) / swarm / 1e6:.2f} MB/s [{card}]", flush=True)
+    sdecoded, sdcold, sdwarm, _ = cold_warm(torch, lambda: zl.inflate(archive))
+    if sdecoded != data:
+        raise AssertionError("zl.inflate does not restore sharded_zlib_compress's stream")
+
+    gdecoded, gcold, gwarm, _ = cold_warm(torch, lambda: gz.decompress(gz_out))
+    if gdecoded != data:
+        raise AssertionError("gz.decompress does not restore the level-6 gzip")
+    print(f"host decode walls (cold, warm): zl.inflate of zl.deflate's stream {dcold:.4f}, "
+          f"{dwarm:.4f} s = {len(data) / dwarm / 1e6:.2f} MB/s; zl.inflate of the sharded "
+          f"stream {sdcold:.4f}, {sdwarm:.4f} s; gz.decompress of the level-6 gzip "
+          f"{gcold:.4f}, {gwarm:.4f} s = {len(data) / gwarm / 1e6:.2f} MB/s [{card}]",
+          flush=True)
+
+    # Adler-32 on the card
+    arr = np.frombuffer(data, np.uint8)
+    d_data = torch.from_numpy(arr.copy()).to(dev)
+    want = zlib.adler32(data)
+    got = checksum.adler32(d_data)
+    if got != want:
+        raise AssertionError(f"adler32 on the card {got:#x} != zlib.adler32 {want:#x}")
+    rng = np.random.default_rng(5)
+    for n in ADLER_LENGTHS:
+        part = data[n:2 * n]
+        if checksum.adler32(d_data[n:2 * n]) != zlib.adler32(part):
+            raise AssertionError(f"adler32 differs from zlib.adler32 at length {n}")
+        start = int(rng.integers(0, 1 << 32))
+        if checksum.adler32(part, start, device="cuda") != zlib.adler32(part, start):
+            raise AssertionError(f"adler32 with a start value differs at length {n}")
+        if checksum.adler32(b"\xff" * n, device="cuda") != zlib.adler32(b"\xff" * n):
+            raise AssertionError(f"adler32 of 0xff bytes differs at length {n}")
+    ms = time_ms(torch, lambda: checksum.adler32(d_data))
+    scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    warm_dev = device_total(torch, lambda: checksum.adler32(d_data))
+    cold_dev = device_total(torch, lambda: checksum.adler32(d_data),
+                            flush=lambda: scratch.fill_(1))
+    bound = 1e3 * (d_data.nbytes + 8) / HBM_BYTES_PER_S
+    print(f"adler32: equal to zlib.adler32 on the corpus and on lengths "
+          f"{list(ADLER_LENGTHS)} (with start values, and of 0xff bytes); on the card "
+          f"{ms:.4f} ms (device {warm_dev:.4f} ms L2-warm, {cold_dev:.4f} ms cold; every "
+          f"kernel and copy), bound {bound:.4f} ms [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -761,6 +899,10 @@ def main() -> int:
     lib_path = _build.build()
     _build.lib()
     print(f"build: {time.perf_counter() - t0:.3f} s -> {lib_path}", flush=True)
+    from decompress_tpu_torch import native
+
+    t0 = time.perf_counter()
+    print(f"build: native {native.build()} in {time.perf_counter() - t0:.3f} s", flush=True)
 
     data = corpus_bytes()
 
@@ -770,7 +912,7 @@ def main() -> int:
     # ---- 4. the main paths: level 4, then the default level 6 ----
     main_path(torch, data, 4, ("mark_path", "histograms", "build_slots"), card)
     wrappers = ("mark_path", "histograms", "litbits", "gain", "build_slots")
-    launches = main_path(torch, data, None, wrappers, card)
+    launches, gz_out = main_path(torch, data, None, wrappers, card)
 
     # ---- 5. where the time goes ----
     stage_split(torch, data, card)
@@ -783,6 +925,9 @@ def main() -> int:
 
     # ---- 7. the decode and CRC kernels against their plain versions ----
     stats.update(decode_crc_checks(torch, dev, data, archive, card))
+
+    # ---- 8. zlib framing, the one-shot host decode, Adler-32 ----
+    zlib_path(torch, dev, data, gz_out, wrappers, card)
 
     kernels = [
         dict(name=name, route="cuda",

@@ -13,6 +13,11 @@ byte-identical to the reference's.
 ``device`` names where the arrays live: ``"cuda"`` (the default) runs
 the CUDA kernels, ``"cpu"`` their plain PyTorch versions.  A CUDA device
 on a machine without one raises; nothing falls back.
+
+The one-shot decode (:func:`inflate`, :func:`inflate_ex`,
+:func:`inflate_into`) runs on the host, as the reference's does: the
+native state machine of ``native/`` (a copy of the reference's), with
+the table-driven :func:`_inflate_python` as its plain version.
 """
 
 from __future__ import annotations
@@ -24,8 +29,10 @@ import torch
 
 from .core import bitstream, huffman, tables
 from .core.tables import (
+    DIST_BASE,
     DIST_EXTRA,
     EOB,
+    LENGTH_BASE,
     LENGTH_EXTRA,
     NUM_DIST_SYMS,
     NUM_LIT_SYMS,
@@ -45,13 +52,15 @@ SEGMENT_SIZE = (1 << 17) - 512
 #: segments per device batch (the reference reads an environment override;
 #: the port has none)
 MAX_DEVICE_BATCH = 8
+#: default output buffer of the streaming decoders (the reference's)
+io_buffer_size = 65536
 _HDR_PAD = 1024          # padded header slots per segment in the pack call
 #: strategy name -> dedicated LEVELS slot ("fixed" is the dynamic=False knob)
 STRATEGY_LEVELS = {"rle": 100, "huffman_only": 101}
 
 
 class MalformedError(ValueError):
-    """Malformed DEFLATE input."""
+    """Typed data error; the messages are the reference's."""
 
 
 def _rle_code_lengths(lengths: np.ndarray):
@@ -299,6 +308,194 @@ def _parse_dynamic_lengths(r: bitstream.BitReader):
     if lengths[256] == 0:
         raise MalformedError("invalid dictionary")
     return lengths[:hlit], lengths[hlit:]
+
+
+def _build_tables_from_header(r: bitstream.BitReader):
+    lit_lens, dist_lens = _parse_dynamic_lengths(r)
+    try:
+        lit_dt = huffman.build_decode_table(lit_lens, huffman.ROOT_BITS_LENS)
+        dist_dt = huffman.build_decode_table(
+            dist_lens, huffman.ROOT_BITS_DISTS, allow_incomplete=True
+        )
+    except huffman.InvalidTree as e:
+        raise MalformedError("invalid dictionary") from e
+    return lit_dt, dist_dt
+
+
+_FIXED_LIT_DT = None
+_FIXED_DIST_DT = None
+_FIXED_CODES = None
+
+
+def _fixed_codes_cached():
+    """Canonical (bit-reversed, emit-ready) fixed-tree codes."""
+    global _FIXED_CODES
+    if _FIXED_CODES is None:
+        _FIXED_CODES = (
+            huffman.canonical_codes(tables.FIXED_LIT_LENGTHS),
+            huffman.canonical_codes(tables.FIXED_DIST_LENGTHS[:30]),
+        )
+    return _FIXED_CODES
+
+
+def _fixed_tables():
+    global _FIXED_LIT_DT, _FIXED_DIST_DT
+    if _FIXED_LIT_DT is None:
+        _FIXED_LIT_DT = huffman.build_decode_table(tables.FIXED_LIT_LENGTHS, huffman.ROOT_BITS_LENS)
+        _FIXED_DIST_DT = huffman.build_decode_table(tables.FIXED_DIST_LENGTHS, huffman.ROOT_BITS_DISTS)
+    return _FIXED_LIT_DT, _FIXED_DIST_DT
+
+
+# ---------------------------------------------------------------------------
+# One-shot inflate on the host: the native state machine (native/tpuz.cpp,
+# a copy of the reference's), as the reference runs it; the reference has
+# no device one-shot inflate.  _inflate_python is the plain version the
+# tests hold it to.
+# ---------------------------------------------------------------------------
+
+
+def inflate(data, *, window: np.ndarray | None = None,
+            window_bits: int = 15) -> bytes:
+    """One-shot raw-DEFLATE decode on the host.
+
+    ``window`` optionally seeds the 32 KiB back-reference history
+    (a preset dictionary).  ``window_bits`` (8..15) restricts
+    back-reference distances to the negotiated window: a stream that
+    references past it fails with "invalid distance".  Raises
+    :class:`MalformedError` on invalid input.
+    """
+    out, _ = inflate_ex(data, window=window, window_bits=window_bits)
+    return out
+
+
+def inflate_ex(data, *, window: np.ndarray | None = None,
+               window_bits: int = 15):
+    """Like :func:`inflate` but also returns bytes consumed."""
+    return _inflate_native(_np_u8(data), window, window_bits)
+
+
+def _inflate_ex_arr(data, *, window: np.ndarray | None = None,
+                    window_bits: int = 15) -> tuple[np.ndarray, int]:
+    """Like :func:`inflate_ex` but returns the payload as a numpy uint8
+    array (zero-copy from the native decoder) so framing layers can
+    checksum and assemble without materializing intermediate bytes."""
+    return _inflate_native_arr(_np_u8(data), window, window_bits)
+
+
+def inflate_into(data, dst: np.ndarray, *, window: np.ndarray | None = None,
+                 window_bits: int = 15) -> tuple[int, int]:
+    """One-shot inflate into a caller-owned buffer; returns
+    (bytes_consumed, bytes_produced).  Raises :class:`MalformedError`,
+    including when ``dst`` is too small."""
+    out, consumed = inflate_ex(data, window=window, window_bits=window_bits)
+    if len(out) > dst.size:
+        raise MalformedError("unexpected end of output")
+    dst[: len(out)] = np.frombuffer(out, np.uint8)
+    return consumed, len(out)
+
+
+def _inflate_native(buf: np.ndarray, window, window_bits: int = 15) -> tuple[bytes, int]:
+    out, consumed = _inflate_native_arr(buf, window, window_bits)
+    return out.tobytes(), consumed
+
+
+def _inflate_native_arr(buf: np.ndarray, window,
+                        window_bits: int = 15) -> tuple[np.ndarray, int]:
+    """Native one-shot inflate returning a numpy uint8 view (no copy);
+    framing layers checksum/concatenate the array and materialize
+    bytes once at the API boundary."""
+    from . import native
+
+    inf = native.InflateStream()
+    if window_bits != 15:
+        inf.set_window_bits(window_bits)
+    if window is not None:
+        inf.set_dictionary(bytes(window))
+    if not buf.flags["C_CONTIGUOUS"]:
+        buf = np.ascontiguousarray(buf)
+    pos = 0
+    # uninitialized output buffer, grown geometrically on FLUSH
+    out = np.empty(max(4 * buf.size, 1 << 16), dtype=np.uint8)
+    out_pos = 0
+    while True:
+        status, consumed, produced = inf.run_into(buf[pos:], out, out_pos)
+        pos += consumed
+        out_pos += produced
+        if status == native.InflateStream.END:
+            return out[:out_pos], pos - len(inf.takeback())
+        if status == native.InflateStream.MALFORMED:
+            raise MalformedError(inf.error)
+        if status == native.InflateStream.AWAIT and pos >= buf.size:
+            raise MalformedError("unexpected end of input")
+        if status == native.InflateStream.FLUSH:
+            bigger = np.empty(out.size * 2, dtype=np.uint8)
+            bigger[:out_pos] = out[:out_pos]
+            out = bigger
+        # AWAIT with more input: loop
+
+
+def _inflate_python(data, *, window: np.ndarray | None = None,
+                    window_bits: int = 15):
+    """The plain table-driven decoder: (payload bytes, bytes consumed)."""
+    win_limit = 1 << window_bits
+    r = bitstream.BitReader(_np_u8(data))
+    out = bytearray()
+    if window is not None:
+        out.extend(bytes(window))
+    prefix = len(out)
+    try:
+        while True:
+            bfinal = r.read(1)
+            btype = r.read(2)
+            if btype == 3:
+                raise MalformedError("invalid kind of block")
+            if btype == 0:
+                r.align_to_byte()
+                ln = int.from_bytes(r.read_bytes(2).tobytes(), "little")
+                nlen = int.from_bytes(r.read_bytes(2).tobytes(), "little")
+                if ln != (nlen ^ 0xFFFF):
+                    raise MalformedError("invalid complement of length")
+                out.extend(r.read_bytes(ln).tobytes())
+            else:
+                if btype == 1:
+                    lit_dt, dist_dt = _fixed_tables()
+                else:
+                    lit_dt, dist_dt = _build_tables_from_header(r)
+                while True:
+                    sym, nb = huffman.decode_one(lit_dt, r.peek(15))
+                    if sym < 0:
+                        raise MalformedError("invalid literal/length")
+                    r.consume(nb)
+                    if sym == EOB:
+                        break
+                    if sym < 256:
+                        out.append(sym)
+                        continue
+                    if sym > 285:
+                        raise MalformedError("invalid literal/length")
+                    lcode = sym - 257
+                    length = int(LENGTH_BASE[lcode]) + r.read(int(LENGTH_EXTRA[lcode]))
+                    dsym, dnb = huffman.decode_one(dist_dt, r.peek(15))
+                    if dsym < 0 or dsym > 29:
+                        raise MalformedError("invalid distance code")
+                    r.consume(dnb)
+                    dist = int(DIST_BASE[dsym]) + r.read(int(DIST_EXTRA[dsym]))
+                    if dist > len(out) or dist > win_limit:
+                        raise MalformedError("invalid distance")
+                    # copy with overlap semantics; doubling keeps this O(log)
+                    src = len(out) - dist
+                    if dist >= length:
+                        out += out[src : src + length]
+                    else:
+                        chunk = bytes(out[src:])
+                        while len(chunk) < length:
+                            chunk = chunk + chunk
+                        out += chunk[:length]
+            if bfinal:
+                break
+    except EOFError as e:
+        raise MalformedError("unexpected end of input") from e
+    return bytes(out[prefix:]), r.byte_position()
 
 
 # ---------------------------------------------------------------------------

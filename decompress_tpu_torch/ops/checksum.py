@@ -1,9 +1,9 @@
-"""CRC-32 on the card.
+"""CRC-32 and Adler-32 on the card.
 
-Counterpart of ``decompress_tpu/ops/checksum.py`` (CRC-32 only; Adler-32
-waits for zlib framing).  :func:`crc32_batch_device` and :func:`crc32`
-are ``crc_cu.crc32_rows`` (one CUDA kernel computes each row's whole
-CRC-32, init and final XOR included) and one copy to the host.
+Counterpart of ``decompress_tpu/ops/checksum.py``.  :func:`crc32_batch_device`
+and :func:`crc32` are ``crc_cu.crc32_rows`` (one CUDA kernel computes
+each row's whole CRC-32, init and final XOR included) and one copy to
+the host.
 
 The CRC register is linear over GF(2) in the message bits.  The
 reference's layout, which ``crc_cu.crc32_rows_plain`` keeps: rows
@@ -13,9 +13,16 @@ chunks), every 256-byte chunk's zero-init register computed
 independently, and chunk pairs folded by "advance by k zero bytes"
 matrices, level by level (:func:`_combine_tree`).
 
+:func:`adler32` is torch code on the tensor's device, as the reference's
+is jnp with no Pallas kernel: each ``ADLER_CHUNK``-byte chunk's sums S
+and W (int32, summed straight from the bytes), then their weighted sum
+mod 65521 in int64, so the reference's int32 tree of partial moduli
+(``_mod_tree_sum``) is not needed.  The host combines (:func:`crc32_combine`,
+:func:`adler32_combine`) are the reference's.
+
 The host GF(2) helpers are copies of the reference's (numpy);
 ``tests/test_torch_checksum.py`` holds them and every result equal to
-the reference's and to ``zlib.crc32``.
+the reference's and to ``zlib``.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import torch
 
 from . import crc_cu
 
+ADLER_MOD = 65521
+ADLER_CHUNK = 512      # bytes per Adler-32 chunk
 CRC_POLY = 0xEDB88320  # reflected CRC-32 (IEEE), as used by gzip/zlib
 CRC_CHUNK = 256        # bytes per chunk register
 
@@ -93,6 +102,21 @@ def crc_advance(crc_reg: int, nbytes: int) -> int:
         nbytes >>= 1
         k += 1
     return crc_reg
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """CRC of the concatenation from the CRCs of the halves: since init
+    and final XOR are both 0xFFFFFFFF, ``M^len2 · crc1 ⊕ crc2``."""
+    return crc_advance(crc1, len2) ^ crc2
+
+
+def adler32_combine(a1: int, a2: int, len2: int) -> int:
+    """Adler-32 of a concatenation from the halves' checksums."""
+    s1_1, s2_1 = a1 & 0xFFFF, (a1 >> 16) & 0xFFFF
+    s1_2, s2_2 = a2 & 0xFFFF, (a2 >> 16) & 0xFFFF
+    s1 = (s1_1 + s1_2 - 1) % ADLER_MOD
+    s2 = (s2_1 + s2_2 + (s1_1 - 1) * (len2 % ADLER_MOD)) % ADLER_MOD
+    return (s2 << 16) | s1
 
 
 @functools.cache
@@ -184,3 +208,61 @@ def crc32(data, value: int = 0, *, device="cuda") -> int:
     lengths = torch.tensor([arr.size], dtype=torch.int32).to(device)
     init = torch.tensor([value & 0xFFFFFFFF], dtype=torch.int64).to(device)
     return int(crc_cu.crc32_rows(row, lengths, init)[0])
+
+
+# ---------------------------------------------------------------------------
+# Device Adler-32.
+# ---------------------------------------------------------------------------
+
+
+def _adler_partials(chunks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """chunks: uint8[n, L]. Returns per-chunk (S, W) mod ADLER_MOD, int64,
+    where S = Σ b and W = Σ (L-i)·b_i.  Both are summed in int32 straight
+    from the bytes (W of one chunk < 255·L·(L+1)/2 < 2^31 for L = 512)."""
+    l = chunks.shape[1]
+    weights = l - torch.arange(l, device=chunks.device, dtype=torch.int32)
+    s = chunks.sum(1, dtype=torch.int32) % ADLER_MOD
+    w = (chunks * weights).sum(1, dtype=torch.int32) % ADLER_MOD
+    return s.to(torch.int64), w.to(torch.int64)
+
+
+def _adler32_padded(data_padded: torch.Tensor, length: int) -> torch.Tensor:
+    """Adler-32 (from 1) of a back-aligned zero-front-padded uint8 buffer
+    of a whole number of chunks, as an int64 scalar tensor.
+
+    Leading zeros leave A unchanged and inflate B by exactly ``pad``
+    (the padded buffer's leading 1s), corrected at the end."""
+    p = data_padded.shape[0]
+    nchunks = p // ADLER_CHUNK
+    s, w = _adler_partials(data_padded.view(nchunks, ADLER_CHUNK))
+    # B(padded) = P + Σ_j W_j + L·Σ_j (n-1-j)·S_j  (mod m); A = 1 + Σ S_j
+    coeff = (nchunks - 1 - torch.arange(nchunks, device=s.device)) % ADLER_MOD
+    weighted = (coeff * s) % ADLER_MOD  # < 2^32: int64 holds it
+    a = (1 + s.sum()) % ADLER_MOD
+    b = (p % ADLER_MOD + w.sum() + ADLER_CHUNK * (weighted.sum() % ADLER_MOD)) % ADLER_MOD
+    b = (b - (p - length) % ADLER_MOD + ADLER_MOD) % ADLER_MOD
+    return (b << 16) | a
+
+
+def adler32(data, value: int = 1, *, device="cuda") -> int:
+    """Adler-32 of ``data`` on ``device`` (a tensor stays on its own
+    device); drop-in for ``zlib.adler32``."""
+    if isinstance(data, torch.Tensor):
+        t = data.reshape(-1)
+    else:
+        arr = np.frombuffer(bytes(data), dtype=np.uint8) if isinstance(
+            data, (bytes, bytearray, memoryview)) else np.asarray(data, dtype=np.uint8)
+        if not arr.flags.writeable:  # torch wants a writable buffer
+            arr = arr.copy()
+        t = torch.from_numpy(arr.reshape(-1)).to(device)
+    if t.dtype != torch.uint8:
+        raise TypeError(f"adler32: expected uint8 data, got {t.dtype}")
+    n = t.shape[0]
+    if n == 0:
+        return value
+    pad = -n % ADLER_CHUNK
+    padded = torch.cat([t.new_zeros(pad), t]) if pad else t
+    fresh = int(_adler32_padded(padded, n))
+    if value == 1:
+        return fresh
+    return adler32_combine(value, fresh, n)

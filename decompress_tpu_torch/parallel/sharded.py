@@ -1,4 +1,5 @@
-"""The member-parallel gzip archive on the card: indexed write and decode.
+"""The member-parallel gzip archive on the card (indexed write and decode),
+and the member-parallel zlib stream.
 
 Counterpart of ``decompress_tpu/parallel/sharded.py`` on one device.
 
@@ -21,24 +22,32 @@ index and the block headers before anything goes to the card (no index,
 the legacy command-stride TS index, multi-block members, trees too
 deep for the decode tables, a row too long for the decode kernel, or a
 row command count that saturates the index), take a serial route
-through the standard library's ``zlib``.  Each use adds one to ``serial_fallbacks[reason]``,
-so a fallback is always visible; the port's own archives never take it.
+through the host decoder ``gz.decompress``, as the reference's do, so a
+malformed archive there raises the reference's ``gz.MalformedError`` or
+``de.MalformedError`` with its message.  Each use adds one to
+``serial_fallbacks[reason]``, so a fallback is always visible; the
+port's own archives never take it.
 Once the card has decoded, a rejected row or a member whose CRC-32 or
 length does not match raises ``de.MalformedError``: the card's result
-is never replaced by a host decode.  The reference's multi-device
-``mesh`` and ``config`` arguments and its ``expand`` choice (native host
-or device expansion) are not ported.
+is never replaced by a host decode.
+
+* :func:`sharded_zlib_compress` writes one zlib stream from members
+  compressed as the gzip members are, chained with BFINAL 0 and a sync
+  flush (an empty stored block) between them, with the stream's
+  Adler-32 computed on the card.
+
+The reference's multi-device ``mesh`` and ``config`` arguments and its
+``expand`` choice (native host or device expansion) are not ported.
 """
 
 from __future__ import annotations
 
 import collections
-import zlib
 
 import numpy as np
 import torch
 
-from .. import de, gz
+from .. import de, gz, zl
 from ..core import bitstream, huffman
 from ..ops import checksum, inflate, inflate_cu, lz77
 
@@ -73,22 +82,26 @@ def _batched_members(arr: np.ndarray, member_size: int, hist: int):
     return data, n_valid
 
 
-def _compress_members(arr, level, member_size, dev, shared_tree=False):
+def _compress_members(arr, level, member_size, dev, final_flags=None,
+                      want_crc=True, shared_tree=False):
     """Member compression on ``dev``, in chunks of MAX_DEVICE_BATCH
-    members (a tail chunk padded as ``de._batch_rows`` pads it); every
-    member is a final block.
+    members (a tail chunk padded as ``de._batch_rows`` pads it); member i
+    is a final block where ``final_flags[i]`` (default: every member).
 
     Returns (parts, n_valid, crcs) where parts[i] is either ("stored",
     payload_u8) or ("packed", packed_u8, total_bits, splits, ncmds),
     splits being the N_SPLITS-1 (bit_off, cmd_idx, out_off) triples
-    (bit_off 0 = none).  ``shared_tree`` analyzes every chunk first, sums
-    the histograms, builds one dynamic tree and packs every member with
-    it."""
+    (bit_off 0 = none), and crcs the members' CRC-32s computed on the card
+    (None without ``want_crc``).  ``shared_tree`` analyzes every chunk
+    first, sums the histograms, builds one dynamic tree and packs every
+    member with it."""
     # members are independent (window reset at boundaries), so they run
     # with no history prefix
     hist = 0
     data, n_valid = _batched_members(arr, member_size, hist)
     m = data.shape[0]
+    if final_flags is None:
+        final_flags = np.ones(m, bool)
     chunk = de.MAX_DEVICE_BATCH
     out_words = (9 * member_size) // 32 + 2 * de._HDR_PAD
 
@@ -109,12 +122,12 @@ def _compress_members(arr, level, member_size, dev, shared_tree=False):
                                    seg_len=member_size, hist=hist)
         hist_lit = res["hist_lit"].cpu().numpy()[:b]
         hist_dist = res["hist_dist"].cpu().numpy()[:b]
-        return b, b_pad, cdata, cnv, d_data, res, hist_lit, hist_dist
+        return lo, b, b_pad, cdata, cnv, d_data, res, hist_lit, hist_dist
 
     def pack(st, shared):
-        b, b_pad, cdata, cnv, d_data, res, hist_lit, hist_dist = st
+        lo, b, b_pad, cdata, cnv, d_data, res, hist_lit, hist_dist = st
         (hdr_vals, hdr_bits), tabs, kinds = de.plan_blocks(
-            hist_lit, hist_dist, cnv[:b], np.ones(b, bool), pad_to=b_pad,
+            hist_lit, hist_dist, cnv[:b], final_flags[lo:lo + b], pad_to=b_pad,
             shared_tree=shared or False)
         pk = de.pack_segments(res, d_data[:, hist:], hdr_vals, hdr_bits, *tabs,
                               out_words=out_words, n_splits=N_SPLITS,
@@ -146,7 +159,8 @@ def _compress_members(arr, level, member_size, dev, shared_tree=False):
         used = [int(totals[i]) for i in range(b) if kinds[i] != "stored"]
         cap = (max(used) + 31) // 32 + 1 if used else 0
         words = words[:b, :cap].cpu().numpy().astype("<u4")
-        crcs_all.extend(checksum.crc32_batch_device(d_data[:, hist:], cnv)[:b])
+        if want_crc:
+            crcs_all.extend(checksum.crc32_batch_device(d_data[:, hist:], cnv)[:b])
         for i in range(b):
             if kinds[i] == "stored":
                 parts.append(("stored", cdata[i, hist : hist + cnv[i]]))
@@ -157,7 +171,7 @@ def _compress_members(arr, level, member_size, dev, shared_tree=False):
                 ]
                 parts.append(("packed", words[i].view(np.uint8), int(totals[i]),
                               splits, int(sp_n[i])))
-    return parts, n_valid, np.array(crcs_all)
+    return parts, n_valid, (np.array(crcs_all) if want_crc else None)
 
 
 def _encode_tb(split_rows: list, ncmds: list, stride: int) -> bytes | None:
@@ -187,7 +201,8 @@ def _encode_tb(split_rows: list, ncmds: list, stride: int) -> bytes | None:
 
 
 def sharded_gzip_compress(data, level: int = 6, *, member_size: int = de.SEGMENT_SIZE,
-                          mtime: int = 0, os: int = gz.OS_UNIX, index: bool = True,
+                          mtime: int = 0, os: gz.OS | int = gz.OS.default(),
+                          index: bool = True,
                           shared_tree: bool = False, device="cuda") -> bytes:
     """Multi-member gzip archive, members compressed in parallel on
     ``device``; byte-identical to the reference's
@@ -234,6 +249,42 @@ def sharded_gzip_compress(data, level: int = 6, *, member_size: int = de.SEGMENT
         out.append(int(crcs[i]).to_bytes(4, "little"))
         out.append(int(int(n_valid[i]) & 0xFFFFFFFF).to_bytes(4, "little"))
     return b"".join(out)
+
+
+def sharded_zlib_compress(data, level: int = 6, *, member_size: int = de.SEGMENT_SIZE,
+                          device="cuda") -> bytes:
+    """One zlib stream from members compressed in parallel on ``device``;
+    byte-identical to the reference's ``sharded_zlib_compress`` with the
+    same arguments.  Members are raw blocks with no shared window, all
+    but the last with BFINAL 0 and each packed one followed by a sync
+    flush (an empty stored block) so the next starts on a byte; the
+    stream's Adler-32 is computed on ``device``."""
+    dev = de._resolve_device(device)
+    arr = de._np_u8(data)
+    if arr.size == 0:
+        return zl.deflate(b"", level, device=device)
+    m = max(1, (arr.size + member_size - 1) // member_size)
+    final_flags = np.zeros(m, bool)
+    final_flags[-1] = True
+    parts, _, _ = _compress_members(arr, level, member_size, dev,
+                                    final_flags=final_flags, want_crc=False)
+    # members tile the input in order, so the stream's Adler-32 is that
+    # of the whole input
+    adler = checksum.adler32(arr, device=dev)
+    w = bitstream.BitWriter()
+    w.write_bytes(zl._header(level))
+    for i, part in enumerate(parts):
+        final = i == m - 1
+        if part[0] == "stored":
+            de._emit_stored(w, part[1], final=final)
+        else:
+            w.write_packed(part[1], part[2])
+            if not final:
+                w.write(0, 3)  # sync flush: an empty stored block
+                w.align_to_byte()
+                w.write(0, 16)
+                w.write(0xFFFF, 16)
+    return w.getvalue() + adler.to_bytes(4, "big")
 
 
 def _build_index(m: int, sizes: list, split_rows: list,
@@ -370,18 +421,11 @@ class _Serial(Exception):
 
 
 def _serial(buf: np.ndarray, reason: str) -> bytes:
-    """Serial decode of concatenated gzip members with the standard
-    library's zlib; counts the use under ``reason``."""
+    """Serial decode of concatenated gzip members on the host
+    (``gz.decompress``, as the reference's serial route); counts the use
+    under ``reason``."""
     serial_fallbacks[reason] += 1
-    data = buf.tobytes()
-    out = []
-    while data:
-        d = zlib.decompressobj(31)
-        out.append(d.decompress(data))
-        if not d.eof:
-            raise zlib.error("incomplete gzip member")
-        data = d.unused_data
-    return b"".join(out)
+    return gz.decompress(buf)
 
 
 def decode_plan(buf: np.ndarray):
@@ -449,8 +493,9 @@ def sharded_gzip_decompress(archive, *, device="cuda") -> bytes:
     members resolve on the host, and every member expands on ``device``.
 
     Archives the device path does not cover, as :func:`decode_plan`
-    finds before anything is staged, take the serial zlib route, counted
-    in ``serial_fallbacks``; malformed input there raises ``zlib.error``.
+    finds before anything is staged, take the serial host route, counted
+    in ``serial_fallbacks``; malformed input there raises the reference's
+    ``gz.MalformedError`` or ``de.MalformedError`` and message.
     A row the decode rejects, or a member whose CRC-32 or length does not
     match, raises ``de.MalformedError``.  Where the reference falls back
     to a serial decode on those, the port does not."""

@@ -10,7 +10,11 @@ CPU tensor) equals the reference's ``crc32_batch_device`` and zlib at
 lengths 0 to 2^20 + 3, with init values; a numpy model of the CUDA
 kernel's fold plan, which cannot run here, equals zlib at the same
 lengths for every block size, misaligned rows and junk past each
-length.  Exact equality throughout (integers).
+length.  Adler-32 (torch on the CPU tensor) and the host combines of
+both checksums equal the reference's and zlib's at lengths around the
+512-byte chunk and zlib's 5,552-byte NMAX, with start values, on all-0xff
+input (the sums' largest values) and on a uint8 tensor.  Exact equality
+throughout (integers).
 """
 
 import zlib
@@ -28,6 +32,7 @@ LENGTHS = (0, 1, 255, 256, 257, 130_560)
 
 def test_constants_and_host_helpers_match_reference():
     assert (checksum.CRC_CHUNK, checksum.CRC_POLY) == (ref.CRC_CHUNK, ref.CRC_POLY)
+    assert (checksum.ADLER_CHUNK, checksum.ADLER_MOD) == (ref.ADLER_CHUNK, ref.ADLER_MOD)
     np.testing.assert_array_equal(checksum._crc_byte_table(), ref._crc_byte_table())
     for k in (0, 1, 7, 17):
         np.testing.assert_array_equal(checksum._crc_shift_pow2(k), ref._crc_shift_pow2(k))
@@ -166,3 +171,36 @@ def test_kernel_fold_plan_model_matches_zlib(spans, offset):
         value = int(rng.integers(0, 1 << 32))
         want = zlib.crc32(row[:n].tobytes(), value)
         assert _kernel_model(row, n, value, spans, offset) == want, n
+
+
+ADLER_LENGTHS = (0, 1, 511, 512, 513, 5552, 5553, 70_001)
+
+
+@pytest.mark.parametrize("n", ADLER_LENGTHS)
+def test_adler32_matches_reference_and_zlib(n):
+    rng = np.random.default_rng(n + 3)
+    x = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    start = int(rng.integers(0, 1 << 32))
+    for data in (x, b"\xff" * n):
+        want = zlib.adler32(data)
+        assert checksum.adler32(data, device="cpu") == want == ref.adler32(data)
+        assert checksum.adler32(data, start, device="cpu") == zlib.adler32(data, start) \
+            == ref.adler32(data, start)
+    t = torch.from_numpy(np.frombuffer(x, np.uint8).copy())
+    assert checksum.adler32(t) == zlib.adler32(x)
+    parts = checksum._adler_partials(t[: n - n % 512].reshape(-1, 512))
+    want_parts = ref._adler_partials(jnp.asarray(np.frombuffer(x[: n - n % 512], np.uint8)
+                                                 .reshape(-1, 512).astype(np.int32)))
+    for g, w in zip(parts, want_parts):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("split", [0, 1, 511, 5553, 9000])
+def test_combines_match_reference_and_zlib(split):
+    x = np.random.default_rng(split).integers(0, 256, 9000, dtype=np.uint8).tobytes()
+    a, b = x[:split], x[split:]
+    got = checksum.adler32_combine(zlib.adler32(a), zlib.adler32(b), len(b))
+    assert got == zlib.adler32(x) == ref.adler32_combine(zlib.adler32(a), zlib.adler32(b),
+                                                         len(b))
+    got = checksum.crc32_combine(zlib.crc32(a), zlib.crc32(b), len(b))
+    assert got == zlib.crc32(x) == ref.crc32_combine(zlib.crc32(a), zlib.crc32(b), len(b))

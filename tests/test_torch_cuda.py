@@ -18,7 +18,10 @@ rows (dynamic, stored, zero-run and fixed members, a flipped end-of-block,
 flipped bits inside interior rows, max_cmds around a row's count, rows of
 1-100 bits, rows outside the body), the CRC kernel on rows of lengths
 around its 16-byte pieces with init values and junk past each length,
-and the sharded round trip on the card.
+and the sharded round trip on the card.  zlib framing on the card
+(``zl.deflate`` at levels 1, 6 and 9 with a dictionary and a small window,
+and ``sharded_zlib_compress``) equal to the CPU port, and Adler-32 on the
+card equal to ``zlib.adler32``.
 """
 
 import functools
@@ -30,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from decompress_tpu_torch import _build, gz
+from decompress_tpu_torch import _build, gz, zl
 from decompress_tpu_torch.ops import (checksum, cost_cu, crc_cu, hist_cu, inflate,
                                       inflate_cu, pack_cu, parse_cu)
 from decompress_tpu_torch.parallel import sharded
@@ -342,3 +345,32 @@ def test_sharded_round_trip_on_card(dev):
     assert gzip.decompress(arch) == x
     assert sharded.sharded_gzip_decompress(arch, device="cuda") == x
     assert not sharded.serial_fallbacks
+
+
+@pytest.mark.parametrize("kw", [dict(level=1), dict(level=6), dict(level=9),
+                                dict(level=6, window_bits=10, zdict=b"dictionary " * 40)],
+                         ids=["l1", "l6", "l9", "wbits10_zdict"])
+def test_zlib_on_card_matches_cpu(dev, kw):
+    x = (CORPUS / "book1").read_bytes()[:300_000]
+    got = zl.deflate(x, device="cuda", **kw)
+    assert got == zl.deflate(x, device="cpu", **kw)
+    assert zl.inflate(got, zdict=kw.get("zdict")) == x
+
+
+def test_sharded_zlib_on_card_matches_cpu(dev):
+    x = (CORPUS / "book1").read_bytes()[:200_000] + bytes(50_000)
+    got = sharded.sharded_zlib_compress(x, member_size=65536, device="cuda")
+    assert got == sharded.sharded_zlib_compress(x, member_size=65536, device="cpu")
+    assert zlib.decompress(got) == x
+
+
+@pytest.mark.parametrize("n", [0, 1, 511, 512, 513, 5552, 5553, 1 << 20, (8 << 20) + 3])
+def test_adler32_on_card(dev, n):
+    rng = np.random.default_rng(n)
+    x = rng.integers(0, 256, n, dtype=np.uint8)
+    t = torch.from_numpy(x).to(dev)
+    assert checksum.adler32(t) == zlib.adler32(x.tobytes())
+    start = int(rng.integers(0, 1 << 32))
+    assert checksum.adler32(x, start, device="cuda") == zlib.adler32(x.tobytes(), start)
+    ones = torch.full((n,), 255, dtype=torch.uint8, device=dev)
+    assert checksum.adler32(ones) == zlib.adler32(b"\xff" * n)

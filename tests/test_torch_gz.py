@@ -3,7 +3,12 @@
 ``decompress_tpu_torch.gz.compress(..., device="cpu")`` (the plain
 PyTorch versions of the kernels) against ``decompress_tpu.gz.compress``
 (JAX on the CPU), byte for byte, and ``gzip.decompress`` restores every
-output, at levels 0-9 and at the default level (6, round B).  Small
+output, at levels 0-9 and at the default level (6, round B).  The
+one-shot decode (``gz.decompress``, ``decompress_member``,
+``decompress_ex``) against the reference's, pinned to its pure-Python
+decoder (``tests/ref_host.py``): payload, bytes consumed and metadata on
+the port's and stdlib streams (several members, every header field), and
+the exception's class and message on malformed ones.  Small
 segments give several batches and a tail batch (the host-built batch
 path); the cases at the default SEGMENT_SIZE reach the device-assembled
 batch path and the two-key sort order of segments longer than 2^17
@@ -12,7 +17,10 @@ and 2^20 the port is held to a zlib round trip instead, since the
 reference's streams there decode to other bytes.
 """
 
+import dataclasses
+import functools
 import gzip
+import io
 import pathlib
 import zlib
 
@@ -24,6 +32,7 @@ from decompress_tpu import de as ref_de
 from decompress_tpu import gz as ref_gz
 from decompress_tpu_torch import de, gz
 from decompress_tpu_torch.ops import lz77
+from ref_host import ref_host  # noqa: F401
 
 CORPUS = pathlib.Path(__file__).parent / "corpus"
 
@@ -106,7 +115,8 @@ def test_empty_and_header_fields_match_reference():
         assert gz.compress(b"", level, device="cpu", **kw) == \
             ref_gz.compress(b"", level, **kw)
     assert [gz._xfl(lv) for lv in range(13)] == [ref_gz._xfl(lv) for lv in range(13)]
-    assert gz.OS_UNIX == ref_gz.OS.default()
+    assert gz.OS.default() == ref_gz.OS.default()
+    assert {m.name: m.value for m in gz.OS} == {m.name: m.value for m in ref_gz.OS}
     x = np.frombuffer(_read("geo")[:3000], np.uint8)
     out = gz.compress(x, 0, device="cpu", os=11, **kw)
     assert out == ref_gz.compress(x, 0, os=11, **kw)
@@ -141,3 +151,103 @@ def test_large_segments_round_trip(shift):
     got = de.deflate(x, 4, segment_size=size, device="cpu")
     d = zlib.decompressobj(-15)
     assert d.decompress(got) + d.flush() == x and d.eof
+
+
+def _meta(meta):
+    return {k: (int(v) if k == "os" else v) for k, v in dataclasses.asdict(meta).items()}
+
+
+def _outcome(fn, *args):
+    """fn's result, or the raised exception's module, class and message."""
+    try:
+        return fn(*args)
+    except Exception as e:  # noqa: BLE001 - the exception is the result
+        return (type(e).__module__.rsplit(".", 1)[-1], type(e).__name__, str(e))
+
+
+_EXTRA = b"AB" + (3).to_bytes(2, "little") + b"xyz" + b"CD" + (1).to_bytes(2, "little") + b"q"
+
+
+def _stdlib_member(data: bytes, **kw) -> bytes:
+    bio = io.BytesIO()
+    with gzip.GzipFile(mode="wb", fileobj=bio, **kw) as f:
+        f.write(data)
+    return bio.getvalue()
+
+
+@functools.cache
+def _streams():
+    x = _read("progc")[:9000]
+    port_full = gz.compress(x, 4, segment_size=4096, device="cpu", mtime=1234567,
+                            os=gz.OS.NTFS, filename="file.txt", comment="a comment",
+                            extra=_EXTRA, fhcrc=True, text=True)
+    return {
+        "port_plain": gz.compress(x, 4, segment_size=4096, device="cpu"),
+        "port_all_fields": port_full,
+        "port_stored": gz.compress(x[:500], 0, device="cpu", os=200),
+        "stdlib": gzip.compress(x, 6, mtime=99),
+        "stdlib_name": _stdlib_member(x, filename="n.bin", mtime=7),
+        "members": gzip.compress(x[:100], 1) + port_full + gzip.compress(b"", 9),
+    }
+
+
+STREAMS = ["members", "port_all_fields", "port_plain", "port_stored", "stdlib",
+           "stdlib_name"]
+
+
+@pytest.mark.parametrize("name", STREAMS)
+def test_decompress_matches_reference(ref_host, name):
+    assert sorted(_streams()) == STREAMS
+    stream = _streams()[name]
+    got = gz.decompress(stream)
+    assert got == ref_gz.decompress(stream) == gzip.decompress(stream)
+    payload, meta, used = gz.decompress_member(stream + b"tail")
+    want = ref_gz.decompress_member(stream + b"tail")
+    assert (payload, _meta(meta), used) == (want[0], _meta(want[1]), want[2])
+    first, meta_ex = gz.decompress_ex(stream)
+    assert (first, _meta(meta_ex)) == (payload, _meta(meta))
+    assert gz.uncompress(stream) == got
+    if name == "port_all_fields":
+        assert meta.extra_field(b"AB") == b"xyz" and meta.extra_field(b"ZZ") is None
+        assert meta.os is gz.OS.NTFS
+
+
+@functools.cache
+def _malformed():
+    good = _streams()["port_plain"]
+    named = _streams()["port_all_fields"]
+
+    def flip(buf, i, bit=1):
+        b = bytearray(buf)
+        b[i] ^= bit
+        return bytes(b)
+
+    return {
+        "magic": b"\x1f\x8c" + good[2:],
+        "kind_of_flow": flip(good, 2, 1),
+        "reserved_flag": flip(good, 3, 0x20),
+        "crc": flip(good, -5),
+        "isize": flip(good, -1),
+        "truncated_trailer": good[:-3],
+        "truncated_body": good[:60],
+        "short": good[:9],
+        "empty": b"",
+        "header_crc": flip(named, 30),
+        "name_unterminated": b"\x1f\x8b\x08\x08" + bytes(6) + b"abc",
+        "extra_truncated": b"\x1f\x8b\x08\x04" + bytes(6) + b"\x10\x00ab",
+        "trailing_garbage": good + b"\x1f\x8b",
+    }
+
+
+MALFORMED = ["crc", "empty", "extra_truncated", "header_crc", "isize", "kind_of_flow",
+             "magic", "name_unterminated", "reserved_flag", "short", "trailing_garbage",
+             "truncated_body", "truncated_trailer"]
+
+
+@pytest.mark.parametrize("name", MALFORMED)
+def test_malformed_matches_reference(ref_host, name):
+    assert sorted(_malformed()) == MALFORMED
+    buf = _malformed()[name]
+    want = _outcome(ref_gz.decompress, buf)
+    assert want[1] == "MalformedError", want
+    assert _outcome(gz.decompress, buf) == want

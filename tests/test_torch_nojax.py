@@ -1,7 +1,9 @@
 """The port never imports JAX or the reference package: with ``jax`` and
 ``decompress_tpu`` made unimportable, importing ``decompress_tpu_torch``,
-compressing 10 KB on the CPU at levels 4 and 6 (round B) and a sharded
-archive's round trip still work (the machine with the card has no JAX);
+compressing 10 KB on the CPU at levels 4 and 6 (round B), a sharded
+archive's round trip, zlib framing (one-shot and sharded), the host
+decode through the native library and Adler-32 still work (the machine
+with the card has no JAX);
 and no source file of the port, nor ``chip_smoke.py``, has an import line
 of the reference package."""
 
@@ -13,12 +15,12 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 _SCRIPT = """
-import gzip, sys
+import gzip, sys, zlib
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["jaxlib"] = None
 sys.modules["decompress_tpu"] = None  # nor the reference package
 import decompress_tpu_torch
-from decompress_tpu_torch import _build, gz
+from decompress_tpu_torch import _build, de, gz, native, zl
 from decompress_tpu_torch.ops import (bitpack, checksum, codes, cost_cu, crc_cu,
                                       hist_cu, inflate, inflate_cu, lz77,
                                       pack_cu, parse_cu)
@@ -32,6 +34,12 @@ arch = sharded.sharded_gzip_compress(x, member_size=4096, device="cpu")
 assert gzip.decompress(arch) == x
 assert sharded.sharded_gzip_decompress(arch, device="cpu") == x
 assert not sharded.serial_fallbacks
+assert gz.decompress(out) == x and de.inflate(out[10:-8]) == x
+z = zl.deflate(x, segment_size=4096, device="cpu")
+assert zl.inflate(z) == x and zlib.decompress(z) == x
+z = sharded.sharded_zlib_compress(x, member_size=4096, device="cpu")
+assert zl.inflate(z) == x and zlib.decompress(z) == x
+assert checksum.adler32(x, device="cpu") == zlib.adler32(x) == native.adler32(x)
 assert not any(m.split(".")[0] in ("jax", "decompress_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("ok", len(out))

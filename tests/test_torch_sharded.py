@@ -20,11 +20,19 @@ plain PyTorch versions of the kernels on the CPU) against the reference
   commands (the TB index's u16 row maximum saturates): byte-identical to
   the reference's archive and decoded by the counted serial route, as
   the reference decodes it; a row past the decode kernel's bit range is
-  routed by the plan, not raised by staging.
+  routed by the plan, not raised by staging;
+* malformed input on the serial route (a truncated gzip, a flipped
+  trailer CRC, a bad magic byte, a reserved block type) raises the
+  reference's exception class and message (the reference pinned to its
+  pure-Python decoder, ``tests/ref_host.py``);
+* ``sharded_zlib_compress`` byte-identical to the reference's at levels
+  4 and 6 on three 16 KiB members (one stored) and a partial one, and on
+  empty input; ``zlib`` and the port's ``zl.inflate`` restore each.
 """
 
 import functools
 import gzip
+import pathlib
 import zlib
 
 import jax.numpy as jnp
@@ -36,9 +44,10 @@ from decompress_tpu import de as ref_de
 from decompress_tpu.ops import bitpack as ref_bitpack
 from decompress_tpu.ops import lz77 as ref_lz77
 from decompress_tpu.parallel import sharded as ref
-from decompress_tpu_torch import de, gz
+from decompress_tpu_torch import de, gz, zl
 from decompress_tpu_torch.ops import bitpack, inflate_cu, lz77
 from decompress_tpu_torch.parallel import sharded
+from ref_host import ref_host  # noqa: F401
 
 MEMBER = 4096
 
@@ -204,7 +213,7 @@ def _with_tb(stride: int | None = None, max_cmds: int | None = None) -> bytes:
     return bytes(arch)
 
 
-def test_serial_route_is_counted():
+def test_serial_route_is_counted(ref_host):
     """What the host finds before staging takes the serial route, counted."""
     sharded.serial_fallbacks.clear()
     unindexed = _pair(4, index=False, mtime=7)[0]
@@ -216,11 +225,14 @@ def test_serial_route_is_counted():
                          (far, "corrupt split index")):
         assert sharded.sharded_gzip_decompress(arch, device="cpu") == PAYLOAD
         assert sharded.serial_fallbacks[reason] == 1, dict(sharded.serial_fallbacks)
-    # the first member's block type set to the reserved 3: zlib rejects it
+    # the first member's block type set to the reserved 3: the host
+    # decoder rejects it as the reference's does
     bad_type = bytearray(_pair(6)[0])
     bad_type[gz._header_end(np.frombuffer(bytes(bad_type), np.uint8))] |= 0b110
-    with pytest.raises(zlib.error):
+    with pytest.raises(de.MalformedError, match="^invalid kind of block$"):
         sharded.sharded_gzip_decompress(bytes(bad_type), device="cpu")
+    with pytest.raises(ref_de.MalformedError, match="^invalid kind of block$"):
+        ref.sharded_gzip_decompress(bytes(bad_type))
     assert sharded.serial_fallbacks["member not device-decodable"] == 1
     assert sum(sharded.serial_fallbacks.values()) == 4
 
@@ -278,3 +290,65 @@ def test_row_past_kernel_bit_range_is_routed(monkeypatch):
     sharded.serial_fallbacks.clear()
     assert sharded.sharded_gzip_decompress(arch, device="cpu") == x
     assert sharded.serial_fallbacks == {"row longer than the decode kernel's bit range": 1}
+
+
+def _serial_malformed():
+    a = gzip.compress(PAYLOAD[:9000], mtime=0)
+    flipped = bytearray(a)
+    flipped[-8] ^= 1  # the trailer's CRC-32
+    return {"truncated": a[:-20], "trailer_crc": bytes(flipped),
+            "magic": b"\x1f\x8c" + a[2:]}
+
+
+SERIAL_MALFORMED = _serial_malformed()
+
+
+@pytest.mark.parametrize("name", sorted(SERIAL_MALFORMED))
+def test_serial_route_raises_reference_error(ref_host, name):
+    """The serial route decodes with the port's host decoder: a malformed
+    archive raises the reference's exception class and message, never
+    ``zlib.error``."""
+    buf = SERIAL_MALFORMED[name]
+
+    def outcome(fn):
+        with pytest.raises(Exception) as ei:
+            fn(buf)
+        e = ei.value
+        return type(e).__module__.rsplit(".", 1)[-1], type(e).__name__, str(e)
+
+    sharded.serial_fallbacks.clear()
+    got = outcome(lambda b: sharded.sharded_gzip_decompress(b, device="cpu"))
+    assert got == outcome(ref.sharded_gzip_decompress)
+    assert got[1] == "MalformedError"
+    assert sum(sharded.serial_fallbacks.values()) == 1
+
+
+def _zlib_payload():
+    rng = np.random.default_rng(12)
+    text = (pathlib.Path(__file__).parent / "corpus" / "book1").read_bytes()
+    return (text[:16384] + rng.integers(0, 256, 16384, np.uint8).tobytes()
+            + text[-16384:] + text[:5000])
+
+
+ZLIB_PAYLOAD = _zlib_payload()
+
+
+@pytest.mark.parametrize("level", [4, 6])
+def test_sharded_zlib_matches_reference(level):
+    got = sharded.sharded_zlib_compress(ZLIB_PAYLOAD, level, member_size=16384, device="cpu")
+    assert got == ref.sharded_zlib_compress(ZLIB_PAYLOAD, level, member_size=16384)
+    assert zlib.decompress(got) == ZLIB_PAYLOAD
+    assert zl.inflate(got) == ZLIB_PAYLOAD
+
+
+def test_sharded_zlib_empty_and_member_options_match_reference():
+    assert sharded.sharded_zlib_compress(b"", device="cpu") == ref.sharded_zlib_compress(b"")
+    assert zlib.decompress(sharded.sharded_zlib_compress(b"", 1, device="cpu")) == b""
+    arr = np.frombuffer(ZLIB_PAYLOAD, np.uint8)
+    flags = np.array([False, True, False, True])
+    parts, n_valid, crcs = sharded._compress_members(arr, 4, 16384, torch.device("cpu"),
+                                                     final_flags=flags, want_crc=False)
+    assert crcs is None and n_valid.tolist() == [16384, 16384, 16384, 5000]
+    assert [p[0] for p in parts] == ["packed", "stored", "packed", "packed"]
+    # BFINAL of each packed member follows its flag
+    assert [int(p[1][0]) & 1 for p in parts if p[0] == "packed"] == [0, 0, 1]
