@@ -55,6 +55,20 @@ Phases, each raising at its first failure:
      the card (ops.checksum.adler32) against zlib.adler32 on the corpus,
      on lengths 0 to 5,553 and with a start value, with its device time
      L2-warm and cold against its byte bound.
+  9. streaming: gz.higher_compress of the corpus in 65,536-byte refills
+     (streaming.Deflate, one device analysis per 130,560-byte segment, its
+     five compression kernels launched in its run) and the streaming zl.Def
+     of it, each checked against the reference's one-shot digest (the
+     reference's streaming encoder writes the same bytes) and by stdlib
+     zlib, with walls beside the one-shot gz.compress's; zl.Def on the queue
+     engine over the corpus's first 1 MiB (64 one-chunk device calls, host
+     entropy coding) against the reference's digest; the stage walls and a
+     profile of a streaming gz.Def of the first 1 MiB; gz.higher_uncompress
+     and zl.Inf of those streams in 64 KiB feeds (host decode walls beside
+     the one-shot gz.decompress's); the mark path, histograms, literal bits
+     and gains against their plain versions on a real queue-engine batch
+     (8 chunk rows of 16,384 bytes, T = 49,152, P = 2^14) and on a streamed
+     segment's batch (one row behind its 32 KiB history), with device times.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the path that uses them (the default
 level-6 gz.compress for the compression kernels, the sharded round trip
@@ -89,6 +103,10 @@ SHARDED_EXPECT = (2920438, "62c7742f29bb8256dd846422c895955fb94149d423b1b6a33f79
 #: the reference's level-6 zl.deflate and sharded_zlib_compress of the corpus
 ZL_EXPECT = (2854685, "867f04b6e8d6f5af6af609c852ab2d22819744e0fc20dc097eb7676e72f143a2")
 SHARDED_ZL_EXPECT = (2916197, "f99b46c27df2da6404a8ca7dfe04a12e08f66af07efde06eb3e0e483ea0c0c85")
+#: the reference's zl.Def(6, engine="queue") of the corpus's first 1 MiB
+QUEUE_EXPECT = (411690, "c548d824294e50fdcd45262834290459e959aa7d45f00b181c58a28824bb8461")
+#: bytes a streaming refill or decode feed carries
+STREAM_PIECE = 65536
 #: Adler-32 lengths checked against zlib.adler32 (chunk and NMAX edges)
 ADLER_LENGTHS = (0, 1, 511, 512, 513, 5552, 5553)
 #: device-memory rate of an H100 SXM (bytes/s), for the kernels' bounds
@@ -168,13 +186,17 @@ def device_split(torch, fn, iters: int = TIMING_ITERS, flush=None) -> tuple[dict
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
-    return per_call(torch, prof, iters)
+    for _ in range(3):  # the profiler now and then records no kernel at all
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        split, kernels = per_call(torch, prof, iters)
+        if split:
+            break
+    return split, kernels
 
 
 def per_call(torch, prof, iters: int) -> tuple[dict, int]:
@@ -272,6 +294,26 @@ def corpus_batch(torch, de, dev, arr):
             torch.from_numpy(hist_len).to(dev), b)
 
 
+def round_a_kernel_args(torch, lz77, cost_cu, d_data, nv, hl, seg: int) -> dict:
+    """The mark path's, histograms', literal bits' and gains' arguments
+    from a real level-6 round A of a batch, as round A and round B build
+    them."""
+    res = lz77.lz77_analyze(d_data, nv, hl, level=6, seg_len=seg)
+    take, ln = lz77._take_defer(res["cand_length"], nv, seg, lz77.LEVELS[6].lazy)
+    lit = d_data[:, lz77.HIST:]
+    lc, dc = (torch.from_numpy(a.astype("i4")).to(d_data.device)
+              for a in lz77._cost_tables_host(res["hist_lit"].cpu().numpy(),
+                                              res["hist_dist"].cpu().numpy()))
+    pay = torch.arange(seg, device=d_data.device)
+    length = torch.where(pay < nv[:, None], res["cand_length"], 0)
+    _, pref = cost_cu.litbits_pref_plain(lit, lc)
+    return {"mark_path": (lz77.jump_array(take, ln, seg, lz77._ceil_pow2(seg)),),
+            "histograms": (res["on_path"], res["is_match"], res["length"], res["dist"],
+                           lit),
+            "litbits": (lit, lc),
+            "gain": (length, res["cand_dist"], None, None, pref, lc, dc)}
+
+
 def kernel_checks(torch, dev, arr, card) -> dict:
     """Phase 3: every kernel == its plain version at the production
     shapes; returns name -> {max_abs_err, ms, plain_ms}."""
@@ -298,17 +340,11 @@ def kernel_checks(torch, dev, arr, card) -> dict:
 
     # level 6: round A, its cost tables, and round B's inputs as
     # lz77_parse_cost builds them
-    res6 = lz77.lz77_analyze(d_data, nv, hl, level=6, seg_len=seg)
-    lc, dc = (torch.from_numpy(a.astype("i4")).to(dev) for a in lz77._cost_tables_host(
-        res6["hist_lit"].cpu().numpy(), res6["hist_dist"].cpu().numpy()))
-    pay = torch.arange(seg, device=dev)
-    length = torch.where(pay < nv[:, None], res6["cand_length"], 0)
-    dist = res6["cand_dist"]
-    _, pref = cost_cu.litbits_pref_plain(lit, lc)
+    gain_args = round_a_kernel_args(torch, lz77, cost_cu, d_data, nv, hl, seg)["gain"]
+    length, dist, _, _, pref, lc, dc = gain_args
     hot = torch.tensor([HOT] * b, dtype=torch.int32, device=dev)
     hot_len, hot_d = lz77._hot_lane(d_data, nv, hl, hot, seg_len=seg, hist=lz77.HIST,
                                     max_dist=1 << 15)
-    gain_args = (length, dist, None, None, pref, lc, dc)
     gain_hot = (length, dist, hot_len, hot_d, pref, lc, dc)
     print(f"inputs: B={b} seg_len={seg} P={p}; level 4 on-path "
           f"{int(res['on_path'].sum())} matches {int(res['is_match'].sum())}; "
@@ -429,12 +465,13 @@ def main_path(torch, data: bytes, level, wrappers, card) -> tuple[dict, bytes]:
     return launches, out
 
 
-def stage_split(torch, data: bytes, card, runs: int = 3) -> None:
-    """Per-stage walls of warm level-6 runs (host clock, a synchronize
-    around each stage; the analyze2_finish stage holds the host tables,
-    the mining and round B), then one profiled run (device busy share,
-    device time by kernel)."""
-    from decompress_tpu_torch import de, gz
+def stage_split(torch, fn, card, title: str = "level-6 gz.compress",
+                runs: int = 3) -> None:
+    """Per-stage walls of warm runs of fn() (level-6 compression; host
+    clock, a synchronize around each stage; the analyze2_finish stage holds
+    the host tables, the mining and round B), then one profiled run (device
+    busy share, device time by kernel)."""
+    from decompress_tpu_torch import de
     from decompress_tpu_torch.ops import lz77
 
     stages = {"round A (lz77_analyze)": (lz77, "lz77_analyze"),
@@ -467,13 +504,13 @@ def stage_split(torch, data: bytes, card, runs: int = 3) -> None:
                 spent[label], calls[label] = 0.0, 0
             torch.cuda.synchronize()
             t = time.perf_counter()
-            gz.compress(data, device="cuda")
+            fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-            parts = ", ".join(f"{label} {1e3 * s:.1f} ms/{calls[label]}"
-                              for label, s in spent.items())
-            print(f"stages run {r + 1}: wall {1e3 * wall:.1f} ms; {parts} [{card}]",
-                  flush=True)
+            parts = ", ".join(f"{stage} {1e3 * s:.1f} ms/{calls[stage]}"
+                              for stage, s in spent.items())
+            print(f"{title}: stages run {r + 1}: wall {1e3 * wall:.1f} ms; {parts} "
+                  f"[{card}]", flush=True)
     finally:
         for label, (mod, attr) in stages.items():
             setattr(mod, attr, originals[label])
@@ -483,7 +520,7 @@ def stage_split(torch, data: bytes, card, runs: int = 3) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        gz.compress(data, device="cuda")
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     kernels = [e for e in prof.events()
@@ -491,7 +528,7 @@ def stage_split(torch, data: bytes, card, runs: int = 3) -> None:
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     span_us = (max(e.time_range.end for e in kernels)
                - min(e.time_range.start for e in kernels)) if kernels else 0
-    print(f"profile: wall {1e3 * wall:.1f} ms, {len(kernels)} device kernels, busy "
+    print(f"{title}: profile: wall {1e3 * wall:.1f} ms, {len(kernels)} device kernels, busy "
           f"{busy_us / 1e3:.1f} ms over a {span_us / 1e3:.1f} ms span "
           f"({100 * busy_us / max(span_us, 1):.1f}% busy) [{card}]", flush=True)
     by_name = {}
@@ -499,7 +536,7 @@ def stage_split(torch, data: bytes, card, runs: int = 3) -> None:
         by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     ours = [kv for kv in top if port_kernel(kv[0])]
-    print(f"profile: the port's kernels {sum(us for _, us in ours) / 1e3:.3f} ms "
+    print(f"{title}: profile: the port's kernels {sum(us for _, us in ours) / 1e3:.3f} ms "
           f"of device time", flush=True)
     for kname, us in top[:20] + ours:
         print(f"  device {us / 1e3:8.3f} ms  {kname[:110]}")
@@ -877,6 +914,146 @@ def zlib_path(torch, dev, data: bytes, gz_out: bytes, wrappers, card) -> None:
           f"kernel and copy), bound {bound:.4f} ms [{card}]", flush=True)
 
 
+def streaming_path(torch, dev, data: bytes, wrappers, card) -> None:
+    """Phase 9: the streaming encoders and decoders on the card's port,
+    and four kernels at the streaming shapes."""
+    import zlib
+
+    from decompress_tpu_torch import _build, de, gz, zl
+    from decompress_tpu_torch.ops import cost_cu, hist_cu, lz77, parse_cu
+
+    analyses = [0]
+    analyze2 = lz77.analyze2
+
+    def counted(*args, **kw):
+        analyses[0] += 1
+        return analyze2(*args, **kw)
+
+    def refills(x):
+        pieces = iter([x[i:i + STREAM_PIECE] for i in range(0, len(x), STREAM_PIECE)])
+        return lambda: next(pieces, b"")
+
+    def stream_gz():
+        out = []
+        gz.higher_compress(refills(data), out.append)
+        return b"".join(out)
+
+    def stream_zl(x, **kw):
+        enc = zl.Def(6, **kw)
+        return b"".join(enc.push(x[i:i + STREAM_PIECE])
+                        for i in range(0, len(x), STREAM_PIECE)) + enc.finish()
+
+    def check(label, out, expect, x, decompress):
+        sha = hashlib.sha256(out).hexdigest()
+        print(f"streaming: {label} of {len(x)} bytes -> {len(out)} bytes sha256 {sha}",
+              flush=True)
+        if (len(out), sha) != expect:
+            raise AssertionError(f"{label} differs from the reference: {len(out)} "
+                                 f"bytes, sha256 {sha}")
+        if decompress(out) != x:
+            raise AssertionError(f"stdlib zlib does not restore {label}")
+
+    def launched(label, launches, names):
+        missing = [n for n in names if launches[n] <= 0]
+        if missing:
+            raise AssertionError(f"{label} did not launch {missing}")
+
+    lz77.analyze2 = counted
+    try:
+        gz_out, cold, warm, launches = cold_warm(torch, stream_gz, wrappers)
+        n_gz = analyses[0] // 2
+        check("gz.higher_compress (segment engine)", gz_out, EXPECT[None], data,
+              gzip.decompress)
+        launched("gz.higher_compress", launches, wrappers)
+        _, one_shot = timed_call(torch, lambda: gz.compress(data, device="cuda"))
+        print(f"streaming: gz.higher_compress launches {launches}; {n_gz} device "
+              f"analyses a run; wall cold {cold:.4f} s, warm {warm:.4f} s = "
+              f"{len(data) / warm / 1e6:.2f} MB/s; one-shot gz.compress warm "
+              f"{one_shot:.4f} s (streaming / one-shot {warm / one_shot:.2f}) [{card}]",
+              flush=True)
+
+        analyses[0] = 0
+        _build.LAUNCHES.clear()
+        zl_out, zl_s = timed_call(torch, lambda: stream_zl(data))
+        check("zl.Def (segment engine)", zl_out, ZL_EXPECT, data, zlib.decompress)
+        launched("zl.Def", _build.LAUNCHES, wrappers)
+        print(f"streaming: zl.Def {analyses[0]} device analyses; wall {zl_s:.4f} s = "
+              f"{len(data) / zl_s / 1e6:.2f} MB/s [{card}]", flush=True)
+
+        head = data[:1 << 20]
+        analyses[0] = 0
+        _build.LAUNCHES.clear()
+        q_out, q_s = timed_call(torch, lambda: stream_zl(head, engine="queue"))
+        check("zl.Def (queue engine)", q_out, QUEUE_EXPECT, head, zlib.decompress)
+        q_launches = {n: _build.LAUNCHES[n] for n in wrappers}
+        launched("zl.Def (queue engine)", q_launches, wrappers[:4])
+        print(f"streaming: zl.Def queue engine launches {q_launches}; {analyses[0]} "
+              f"device calls; wall {q_s:.4f} s = {len(head) / q_s / 1e6:.2f} MB/s "
+              f"[{card}]", flush=True)
+    finally:
+        lz77.analyze2 = analyze2
+
+    def stream_head():
+        enc = gz.Def(6)
+        return enc.push(head) + enc.finish()
+
+    stage_split(torch, stream_head, card, "streaming gz.Def of the first 1 MiB", runs=2)
+
+    def uncompress_gz():
+        out = []
+        gz.higher_uncompress(refills(gz_out), out.append, STREAM_PIECE)
+        return b"".join(out)
+
+    def inflate_zl():
+        dec, out = zl.Inf(STREAM_PIECE), []
+        feed = refills(zl_out)
+        while (tok := dec.decode()) != "end":
+            if tok == "await":
+                dec.src(feed())
+            elif tok == "flush":
+                out.append(dec.flush())
+            else:
+                raise AssertionError(f"zl.Inf: {dec.error}")
+        out.append(dec.flush())
+        return b"".join(out)
+
+    walls = {}
+    for label, fn in [("gz.higher_uncompress", uncompress_gz), ("zl.Inf", inflate_zl),
+                      ("one-shot gz.decompress", lambda: gz.decompress(gz_out))]:
+        out, dcold, dwarm, _ = cold_warm(torch, fn)
+        if out != data:
+            raise AssertionError(f"{label} does not restore the corpus")
+        walls[label] = f"{dcold:.4f}, {dwarm:.4f} s = {len(data) / dwarm / 1e6:.2f} MB/s"
+    print("streaming decode walls (cold, warm): " + "; ".join(
+        f"{k} {v}" for k, v in walls.items()) + f" [{card}]", flush=True)
+
+    # the kernels at the streaming shapes
+    raw = de._np_u8(data)
+    chunk = 16384
+    starts = [1 << 20] + [(1 << 20) + chunk * i for i in range(1, de.MAX_DEVICE_BATCH)]
+    rows = de._history_rows([raw[s:s + chunk] for s in starts],
+                            [raw[s - lz77.HIST:s] for s in starts], chunk)
+    seg = de.SEGMENT_SIZE
+    one = de._history_rows([raw[3 * seg:4 * seg]], [raw[3 * seg - lz77.HIST:3 * seg]], seg)
+    plain = {"mark_path": (parse_cu.mark_path, parse_cu.mark_path_plain, lambda o: (o,)),
+             "histograms": (hist_cu.histograms, hist_cu.histograms_plain, lambda o: o),
+             "litbits": (cost_cu.litbits_pref, cost_cu.litbits_pref_plain, lambda o: o),
+             "gain": (cost_cu.gain, cost_cu.gain_plain, lambda o: o)}
+    for label, (data_np, nv_np, hl_np), seg_len in [
+            ("queue-engine batch (B=8, T=49,152, P=2^14)", rows, chunk),
+            ("streamed segment (B=1, T=163,328, P=2^17)", one, seg)]:
+        d_data = torch.from_numpy(data_np).to(dev)
+        nv = torch.from_numpy(nv_np).to(dev)
+        hl = torch.from_numpy(hl_np).to(dev)
+        args = round_a_kernel_args(torch, lz77, cost_cu, d_data, nv, hl, seg_len)
+        for name, (kernel, plain_fn, norm) in plain.items():
+            stat = check_kernel(torch, f"{name} at the {label}", kernel, plain_fn,
+                                [args[name]], norm, card=card, plain_iters=3)
+            print(f"streaming shapes: {name} at the {label}: device "
+                  f"{stat['device_ms']:.4f} ms warm, {stat['device_cold_ms']:.4f} ms "
+                  f"cold, bound {stat['bound_ms']:.4f} ms [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -915,7 +1092,9 @@ def main() -> int:
     launches, gz_out = main_path(torch, data, None, wrappers, card)
 
     # ---- 5. where the time goes ----
-    stage_split(torch, data, card)
+    from decompress_tpu_torch import gz
+
+    stage_split(torch, lambda: gz.compress(data, device="cuda"), card)
 
     # ---- 6. the sharded round trip ----
     archive, sharded_launches = sharded_path(
@@ -928,6 +1107,9 @@ def main() -> int:
 
     # ---- 8. zlib framing, the one-shot host decode, Adler-32 ----
     zlib_path(torch, dev, data, gz_out, wrappers, card)
+
+    # ---- 9. streaming ----
+    streaming_path(torch, dev, data, wrappers, card)
 
     kernels = [
         dict(name=name, route="cuda",

@@ -34,9 +34,12 @@ from .core.tables import (
     EOB,
     LENGTH_BASE,
     LENGTH_EXTRA,
+    MAX_MATCH,
+    MIN_MATCH,
     NUM_DIST_SYMS,
     NUM_LIT_SYMS,
     PRECODE_ORDER,
+    WINDOW_SIZE,
 )
 from .ops import bitpack, lz77, pack_cu
 
@@ -61,6 +64,38 @@ STRATEGY_LEVELS = {"rle": 100, "huffman_only": 101}
 
 class MalformedError(ValueError):
     """Typed data error; the messages are the reference's."""
+
+
+# Command packing of the streaming queue (``streaming.Queue``): literal =
+# byte, copy = ((len-3) << 16) | (off-1) | copy flag, EOB = 256.
+_CMD_COPY_FLAG = 0x2000000
+CMD_EOB = 256
+
+
+def cmd_literal(byte: int) -> int:
+    return byte & 0xFF
+
+
+def cmd_copy(off: int, length: int) -> int:
+    """Packed copy command: ((len-3) << 16) | (off-1) | copy flag."""
+    if not (1 <= off <= WINDOW_SIZE):
+        raise ValueError("invalid offset")
+    if not (MIN_MATCH <= length <= MAX_MATCH):
+        raise ValueError("invalid length")
+    return ((length - MIN_MATCH) << 16) | (off - 1) | _CMD_COPY_FLAG
+
+
+def cmd_is_copy(cmd: int) -> bool:
+    return bool(cmd & _CMD_COPY_FLAG)
+
+
+def cmd_unpack(cmd: int):
+    """-> ('literal', byte) | ('copy', (off, len)) | ('end', None)."""
+    if cmd & _CMD_COPY_FLAG:
+        return "copy", ((cmd & 0xFFFF) + 1, ((cmd >> 16) & 0x1FF) + MIN_MATCH)
+    if cmd == CMD_EOB:
+        return "end", None
+    return "literal", cmd & 0xFF
 
 
 def _rle_code_lengths(lengths: np.ndarray):
@@ -181,6 +216,17 @@ def _emit_stored(w: bitstream.BitWriter, payload: np.ndarray, final: bool) -> No
         w.write(ln, 16)
         w.write(ln ^ 0xFFFF, 16)
         w.write_bytes(payload[lo:hi])
+
+
+def compress_bound(n: int, segment_size: int | None = None) -> int:
+    """Upper bound on :func:`deflate` output size for any level.
+
+    The planner never emits a block bigger than its stored encoding, so
+    the bound is the stored worst case (up to 6 bytes of header and
+    alignment per stored chunk of min(segment, 65535) bytes) plus slack
+    for the final empty block."""
+    chunk = min(segment_size or SEGMENT_SIZE, 65535)
+    return n + 6 * (n // chunk + 1) + 16
 
 
 def plan_blocks(hist_lit, hist_dist, n_valid, final_flags, *, pad_to=None,
@@ -592,21 +638,17 @@ def _fill_history(out: np.ndarray, arr, start: int, hl: int, dict_hist) -> None:
 def _build_batch(arr, seg_lo, seg_hi, seg, dict_hist=None):
     """Host-built batch for seg < HIST: every row carries its own
     history.  Returns (data uint8[b_pad, HIST + seg], n_valid, hist_len, b)."""
-    n = arr.size
-    b = seg_hi - seg_lo
-    b_pad = _batch_rows(b)
     dlen = 0 if dict_hist is None else dict_hist.size
-    data = np.zeros((b_pad, lz77.HIST + seg), dtype=np.uint8)
-    n_valid = np.zeros(b_pad, dtype=np.int32)
-    hist_len = np.zeros(b_pad, dtype=np.int32)
-    for i, s in enumerate(range(seg_lo, seg_hi)):
+    chunks, hists = [], []
+    for s in range(seg_lo, seg_hi):
         start = s * seg
-        stop = min(start + seg, n)
-        n_valid[i] = stop - start
-        hist_len[i] = _history_len(start, dlen)
-        _fill_history(data[i, :lz77.HIST], arr, start, int(hist_len[i]), dict_hist)
-        data[i, lz77.HIST: lz77.HIST + (stop - start)] = arr[start:stop]
-    return data, n_valid, hist_len, b
+        hl = _history_len(start, dlen)
+        head = np.zeros(lz77.HIST, dtype=np.uint8)
+        _fill_history(head, arr, start, hl, dict_hist)
+        chunks.append(arr[start: start + seg])
+        hists.append(head[lz77.HIST - hl:])
+    data, n_valid, hist_len = _history_rows(chunks, hists, seg)
+    return data, n_valid, hist_len, seg_hi - seg_lo
 
 
 def _build_batch_payload(arr, seg_lo, seg_hi, seg, dict_hist=None):
@@ -655,22 +697,20 @@ def _deflate_batches(w, arr, level, seg, dev, force_block=None,
             data, n_valid, hist_len, b = _build_batch(arr, lo, hi, seg,
                                                       dict_hist)
             d_data = torch.from_numpy(data).to(dev)
-        nv = torch.from_numpy(n_valid).to(dev)
-        hl = torch.from_numpy(hist_len).to(dev)
-        res = lz77.lz77_analyze(d_data, nv, hl, level=level, seg_len=seg,
-                                window_bits=window_bits)
-        res = lz77.analyze2_finish(res, d_data, nv, hl, level=level,
-                                   seg_len=seg, window_bits=window_bits)
-        _finish_batch(w, arr, lo, b, nseg, seg, n_valid, d_data, res,
+        res = lz77.analyze2(d_data, torch.from_numpy(n_valid).to(dev),
+                            torch.from_numpy(hist_len).to(dev), level=level,
+                            seg_len=seg, window_bits=window_bits)
+        final_flags = np.array([s == nseg - 1 for s in range(lo, hi)], dtype=bool)
+        _finish_batch(w, arr, lo, final_flags, seg, n_valid, d_data, res,
                       force_block)
 
 
-def _finish_batch(w, arr, seg_lo, b, nseg, seg, n_valid, d_data, res,
+def _finish_batch(w, arr, seg_lo, final_flags, seg, n_valid, d_data, res,
                   force_block=None):
-    """Host half of one batch: block planning, device pack, assembly."""
+    """Host half of one batch of ``len(final_flags)`` segments, the first
+    at ``arr[seg_lo * seg:]``: block planning, device pack, assembly."""
+    b = len(final_flags)
     b_pad = d_data.shape[0]
-    final_flags = np.array([(seg_lo + i) == nseg - 1 for i in range(b)],
-                           dtype=bool)
     (hdr_vals, hdr_bits), tabs, kinds = plan_blocks(
         res["hist_lit"].cpu().numpy()[:b], res["hist_dist"].cpu().numpy()[:b],
         n_valid[:b], final_flags, pad_to=b_pad, force_block=force_block)
@@ -684,10 +724,10 @@ def _finish_batch(w, arr, seg_lo, b, nseg, seg, n_valid, d_data, res,
     cap = (max(used) + 31) // 32 + 1 if used else 0
     words = words[:, :cap].cpu().numpy().astype("<u4")
     for i in range(b):
-        final = (seg_lo + i) == nseg - 1
         if kinds[i] == "stored":
             start = (seg_lo + i) * seg
-            _emit_stored(w, arr[start: start + int(n_valid[i])], final=final)
+            _emit_stored(w, arr[start: start + int(n_valid[i])],
+                         final=bool(final_flags[i]))
         else:
             w.write_packed(words[i].view(np.uint8), int(totals[i]))
 
@@ -769,3 +809,190 @@ def split_points(on_path, is_match, length, boff, posbits, *, n_splits: int,
 
     ncmds = on_i.sum(1) + 1
     return pick(boff), pick(cmdi), pick(opos), ncmds
+
+
+# ---------------------------------------------------------------------------
+# Building blocks of the streaming codecs (``streaming.py``): the host
+# command encoder and its oracle, and the device match finder and segment
+# encoder, with the reference's arguments and a ``device``.
+# ---------------------------------------------------------------------------
+
+
+def reconstruct(cmds: list[int]) -> bytes:
+    """Apply a command list: literals append, copies re-read earlier
+    output; stops at EOB."""
+    out = bytearray()
+    for c in cmds:
+        kind, arg = cmd_unpack(c)
+        if kind == "literal":
+            out.append(arg)
+        elif kind == "copy":
+            off, ln = arg
+            if off > len(out):
+                raise MalformedError("invalid distance")
+            src = len(out) - off
+            for k in range(ln):
+                out.append(out[src + k])
+        else:
+            break
+    return bytes(out)
+
+
+def encode_blocks(blocks: list, *, final: bool = True) -> bytes:
+    """Encode a sequence of (cmds, kind) pairs as chained DEFLATE blocks
+    (kind: 'fixed' | 'dynamic' | None for the cost choice)."""
+    w = bitstream.BitWriter()
+    for bi, (cmds, kind) in enumerate(blocks):
+        last = final and bi == len(blocks) - 1
+        _encode_one_block(w, cmds, kind, last)
+    return w.getvalue()
+
+
+def encode_commands(cmds: list[int], *, block: str | None = None,
+                    final: bool = True) -> bytes:
+    """Entropy-encode a command list as one DEFLATE block on the host.
+    ``block`` forces 'fixed' or 'dynamic' (default: the exact cost
+    choice)."""
+    w = bitstream.BitWriter()
+    _encode_one_block(w, cmds, block, final)
+    return w.getvalue()
+
+
+def _encode_one_block(w: bitstream.BitWriter, cmds: list[int],
+                      block: str | None, final: bool) -> None:
+    cmds = [c for c in cmds if c != CMD_EOB]
+    hist_lit = np.zeros(NUM_LIT_SYMS, dtype=np.int64)
+    hist_dist = np.zeros(NUM_DIST_SYMS, dtype=np.int64)
+    hist_lit[EOB] = 1
+    lits, lens_, dists = [], [], []
+    for c in cmds:
+        kind, arg = cmd_unpack(c)
+        if kind == "literal":
+            hist_lit[arg] += 1
+            lits.append(arg)
+            lens_.append(0)
+            dists.append(0)
+        else:
+            off, ln = arg
+            sym = 257 + int(tables.length_to_code(np.array([ln]))[0])
+            hist_lit[sym] += 1
+            hist_dist[int(tables.dist_to_code(np.array([off]))[0])] += 1
+            lits.append(-1)
+            lens_.append(ln)
+            dists.append(off)
+
+    dyn_lit = huffman.code_lengths_from_frequencies(hist_lit)
+    dyn_dist = huffman.code_lengths_from_frequencies(hist_dist)
+    header = build_dynamic_header(dyn_lit, dyn_dist)
+    cost_dyn = header.bit_length + symbol_cost_bits(hist_lit, hist_dist, dyn_lit, dyn_dist)
+    cost_fix = symbol_cost_bits(hist_lit, hist_dist, _FIXED_LIT_BITS, _FIXED_DIST_BITS)
+    kind = block or ("fixed" if cost_fix <= cost_dyn else "dynamic")
+
+    w.write(1 if final else 0, 1)
+    if kind == "fixed":
+        w.write(1, 2)
+        ll, dl = tables.FIXED_LIT_LENGTHS, tables.FIXED_DIST_LENGTHS
+    else:
+        w.write(2, 2)
+        ll, dl = dyn_lit, dyn_dist
+        packed, total = bitstream.pack_bits(header.values, header.nbits)
+        w.write_packed(packed, total)
+    lc = huffman.canonical_codes(ll)
+    dc = huffman.canonical_codes(dl)
+    for i, c in enumerate(cmds):
+        if lits[i] >= 0:
+            w.write(int(lc[lits[i]]), int(ll[lits[i]]))
+        else:
+            ln, off = lens_[i], dists[i]
+            lcode = int(tables.length_to_code(np.array([ln]))[0])
+            sym = 257 + lcode
+            w.write(int(lc[sym]), int(ll[sym]))
+            w.write(ln - int(LENGTH_BASE[lcode]), int(LENGTH_EXTRA[lcode]))
+            dcode = int(tables.dist_to_code(np.array([off]))[0])
+            w.write(int(dc[dcode]), int(dl[dcode]))
+            w.write(off - int(DIST_BASE[dcode]), int(DIST_EXTRA[dcode]))
+    w.write(int(lc[EOB]), int(ll[EOB]))
+
+
+def _history_rows(chunks, hists, seg: int):
+    """One row per chunk, each behind the last HIST bytes of its own
+    history, padded to ``_batch_rows`` rows (the reference pads to
+    MAX_DEVICE_BATCH; rows are analysed independently, so only the work
+    differs).  Returns (data uint8[b_pad, HIST + seg], n_valid, hist_len)."""
+    b_pad = _batch_rows(len(chunks))
+    data = np.zeros((b_pad, lz77.HIST + seg), dtype=np.uint8)
+    n_valid = np.zeros(b_pad, dtype=np.int32)
+    hist_len = np.zeros(b_pad, dtype=np.int32)
+    for i, (c, h) in enumerate(zip(chunks, hists)):
+        c, h = _np_u8(c), _np_u8(h)
+        if c.size > seg:
+            raise ValueError("chunk larger than segment")
+        hl = min(h.size, lz77.HIST)
+        if hl:
+            data[i, lz77.HIST - hl: lz77.HIST] = h[h.size - hl:]
+        data[i, lz77.HIST: lz77.HIST + c.size] = c
+        n_valid[i] = c.size
+        hist_len[i] = hl
+    return data, n_valid, hist_len
+
+
+def _analyze_rows(data, n_valid, hist_len, level: int, seg: int, dev):
+    """The rows on ``dev`` and their full analysis (``lz77.analyze2``)."""
+    d_data = torch.from_numpy(data).to(dev)
+    res = lz77.analyze2(d_data, torch.from_numpy(n_valid).to(dev),
+                        torch.from_numpy(hist_len).to(dev), level=level,
+                        seg_len=seg)
+    return d_data, res
+
+
+def match_commands(chunk: bytes, hist: bytes = b"", level: int = 6,
+                   seg: int | None = None, *, device="cuda") -> np.ndarray:
+    """Match-find one chunk (with history) into packed commands
+    (the queue's int packing; no EOB appended)."""
+    return match_commands_batch([chunk], [hist], level, seg, device=device)[0]
+
+
+def match_commands_batch(chunks: list[bytes], hists: list[bytes],
+                         level: int = 6, seg: int | None = None, *,
+                         device="cuda") -> list[np.ndarray]:
+    """Match-find up to MAX_DEVICE_BATCH chunks, each with its history,
+    in one device call; one int64 command array per chunk.  ``seg``
+    defaults to 16,384, doubled until the longest chunk fits."""
+    dev = _resolve_device(device)
+    b = len(chunks)
+    if b > MAX_DEVICE_BATCH:
+        raise ValueError("too many chunks for one device call")
+    if seg is None:
+        seg = 16384
+        while seg < max(len(c) for c in chunks):
+            seg *= 2
+    data, n_valid, hist_len = _history_rows(chunks, hists, seg)
+    _, res = _analyze_rows(data, n_valid, hist_len, level, seg, dev)
+    on_path = res["on_path"].cpu().numpy()
+    is_match = res["is_match"].cpu().numpy()
+    length = res["length"].cpu().numpy()
+    dist = res["dist"].cpu().numpy()
+    out = []
+    for i in range(b):
+        n = int(n_valid[i])
+        pos = np.flatnonzero(on_path[i, :n])
+        im = is_match[i, pos].astype(bool)
+        ln64 = length[i, pos].astype(np.int64)
+        d64 = dist[i, pos].astype(np.int64)
+        lits = data[i, lz77.HIST + pos].astype(np.int64)
+        out.append(np.where(
+            im, ((ln64 - MIN_MATCH) << 16) | (d64 - 1) | _CMD_COPY_FLAG, lits))
+    return out
+
+
+def deflate_segment_into(w: bitstream.BitWriter, chunk: bytes, hist: bytes,
+                         level: int, seg: int, final: bool, *,
+                         device="cuda") -> None:
+    """Encode one segment behind its history (the last 32 KiB of
+    ``hist``), appending its blocks to the open writer ``w``: the
+    streaming encoder's backend, one device analysis per segment."""
+    dev = _resolve_device(device)
+    data, n_valid, hist_len = _history_rows([chunk], [hist], seg)
+    d_data, res = _analyze_rows(data, n_valid, hist_len, level, seg, dev)
+    _finish_batch(w, _np_u8(chunk), 0, np.array([final]), seg, n_valid,
+                  d_data, res)

@@ -801,6 +801,17 @@ def analyze2_finish(res, data, n_valid, hist_len, *, level: int,
     return round_b(resx["cand_length"], resx["cand_dist"])
 
 
+def analyze2(data, n_valid, hist_len, *, level: int, seg_len: int,
+             window_bits: int = 15, hist: int = HIST) -> dict[str, torch.Tensor]:
+    """The full analysis of a level: round A (:func:`lz77_analyze`), then
+    :func:`analyze2_finish` (the repairs and, at the two-round levels,
+    round B); the result is byte-exact."""
+    res = lz77_analyze(data, n_valid, hist_len, level=level, seg_len=seg_len,
+                       window_bits=window_bits, hist=hist)
+    return analyze2_finish(res, data, n_valid, hist_len, level=level,
+                           seg_len=seg_len, window_bits=window_bits, hist=hist)
+
+
 def state_from_numpy(res: dict, device) -> dict[str, torch.Tensor]:
     """Stage arrays (e.g. the reference's round-A result dict) as
     tensors on ``device``, dtypes kept (bool stays bool, int32 int32)."""

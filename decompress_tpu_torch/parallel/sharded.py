@@ -116,10 +116,8 @@ def _compress_members(arr, level, member_size, dev, final_flags=None,
         d_data = torch.from_numpy(cdata).to(dev)
         d_nv = torch.from_numpy(cnv).to(dev)
         d_hl = torch.zeros(b_pad, dtype=torch.int32, device=dev)
-        res = lz77.lz77_analyze(d_data, d_nv, d_hl, level=level,
-                                seg_len=member_size, hist=hist)
-        res = lz77.analyze2_finish(res, d_data, d_nv, d_hl, level=level,
-                                   seg_len=member_size, hist=hist)
+        res = lz77.analyze2(d_data, d_nv, d_hl, level=level,
+                            seg_len=member_size, hist=hist)
         hist_lit = res["hist_lit"].cpu().numpy()[:b]
         hist_dist = res["hist_dist"].cpu().numpy()[:b]
         return lo, b, b_pad, cdata, cnv, d_data, res, hist_lit, hist_dist

@@ -21,7 +21,10 @@ around its 16-byte pieces with init values and junk past each length,
 and the sharded round trip on the card.  zlib framing on the card
 (``zl.deflate`` at levels 1, 6 and 9 with a dictionary and a small window,
 and ``sharded_zlib_compress``) equal to the CPU port, and Adler-32 on the
-card equal to ``zlib.adler32``.
+card equal to ``zlib.adler32``.  The streaming encoders on the card
+(``gz.Def`` on the segment engine, ``zl.Def`` and ``gz.Def`` on the queue
+engine, ``match_commands_batch`` on ragged chunk rows) equal to the same
+calls on the CPU.
 """
 
 import functools
@@ -33,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from decompress_tpu_torch import _build, gz, zl
+from decompress_tpu_torch import _build, de, gz, zl
 from decompress_tpu_torch.ops import (checksum, cost_cu, crc_cu, hist_cu, inflate,
                                       inflate_cu, pack_cu, parse_cu)
 from decompress_tpu_torch.parallel import sharded
@@ -374,3 +377,42 @@ def test_adler32_on_card(dev, n):
     assert checksum.adler32(x, start, device="cuda") == zlib.adler32(x.tobytes(), start)
     ones = torch.full((n,), 255, dtype=torch.uint8, device=dev)
     assert checksum.adler32(ones) == zlib.adler32(b"\xff" * n)
+
+
+def _streamed(enc, x, piece=10_000):
+    return b"".join(enc.push(x[i:i + piece]) for i in range(0, len(x), piece)) + enc.finish()
+
+
+@pytest.mark.parametrize("seg", [8192, None])
+def test_streaming_gzip_on_card_matches_cpu(dev, seg):
+    x = (CORPUS / "book1").read_bytes()[:40_000]
+    kw = dict(segment_size=seg, filename="s")
+    _build.LAUNCHES.clear()
+    got = _streamed(gz.Def(6, device="cuda", **kw), x)
+    assert all(_build.LAUNCHES[k] > 0 for k in ("mark_path", "histograms", "litbits",
+                                                "gain", "build_slots"))
+    assert got == _streamed(gz.Def(6, device="cpu", **kw), x)
+    assert gzip.decompress(got) == x
+
+
+@pytest.mark.parametrize("mod", [zl, gz])
+def test_queue_engine_on_card_matches_cpu(dev, mod):
+    x = (CORPUS / "paper2").read_bytes()[:40_000]
+    _build.LAUNCHES.clear()
+    got = _streamed(mod.Def(6, engine="queue", device="cuda"), x)
+    assert all(_build.LAUNCHES[k] > 0 for k in ("mark_path", "histograms", "litbits",
+                                                "gain"))
+    assert got == _streamed(mod.Def(6, engine="queue", device="cpu"), x)
+    assert (zlib.decompress(got) if mod is zl else gzip.decompress(got)) == x
+
+
+def test_match_commands_batch_on_card_matches_cpu(dev):
+    raw = (CORPUS / "book1").read_bytes()
+    chunks = [raw[i:i + 16384] for i in range(40_000, 40_000 + 7 * 16384, 16384)]
+    chunks.append(raw[200_000:203_000])
+    hists = [raw[max(0, 40_000 + 16384 * i - 32768):40_000 + 16384 * i] for i in range(7)]
+    hists.append(b"")
+    got = de.match_commands_batch(chunks, hists, 6, seg=16384, device="cuda")
+    want = de.match_commands_batch(chunks, hists, 6, seg=16384, device="cpu")
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w)

@@ -33,6 +33,7 @@ from decompress_tpu import gz as ref_gz
 from decompress_tpu_torch import de, gz
 from decompress_tpu_torch.ops import lz77
 from ref_host import ref_host  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 CORPUS = pathlib.Path(__file__).parent / "corpus"
 

@@ -26,6 +26,7 @@ from decompress_tpu.ops import cost_pl
 from decompress_tpu.ops import lz77 as ref
 from decompress_tpu_torch import de
 from decompress_tpu_torch.ops import cost_cu, lz77
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEG = 4096
 CORPUS = pathlib.Path(__file__).parent / "corpus"

@@ -2,8 +2,9 @@
 ``decompress_tpu`` made unimportable, importing ``decompress_tpu_torch``,
 compressing 10 KB on the CPU at levels 4 and 6 (round B), a sharded
 archive's round trip, zlib framing (one-shot and sharded), the host
-decode through the native library and Adler-32 still work (the machine
-with the card has no JAX);
+decode through the native library, Adler-32, and the streaming codecs
+(``streaming``, ``lz``, the streaming ``zl`` / ``gz`` classes, both
+engines) still work (the machine with the card has no JAX);
 and no source file of the port, nor ``chip_smoke.py``, has an import line
 of the reference package."""
 
@@ -19,8 +20,10 @@ import gzip, sys, zlib
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["jaxlib"] = None
 sys.modules["decompress_tpu"] = None  # nor the reference package
+import torch
+torch.set_num_threads(1)  # beside other test workers, more threads only wait
 import decompress_tpu_torch
-from decompress_tpu_torch import _build, de, gz, native, zl
+from decompress_tpu_torch import _build, de, gz, lz, native, streaming, zl
 from decompress_tpu_torch.ops import (bitpack, checksum, codes, cost_cu, crc_cu,
                                       hist_cu, inflate, inflate_cu, lz77,
                                       pack_cu, parse_cu)
@@ -40,6 +43,28 @@ assert zl.inflate(z) == x and zlib.decompress(z) == x
 z = sharded.sharded_zlib_compress(x, member_size=4096, device="cpu")
 assert zl.inflate(z) == x and zlib.decompress(z) == x
 assert checksum.adler32(x, device="cpu") == zlib.adler32(x) == native.adler32(x)
+enc = gz.Def(6, segment_size=4096, filename="n", device="cpu")
+s = enc.push(x[:7000]) + enc.push(x[7000:]) + enc.finish()
+assert gzip.decompress(s) == x
+parts = []
+gz.higher_uncompress(iter([s[:999], s[999:], b""]).__next__, parts.append, 777)
+assert b"".join(parts) == x
+enc = zl.Def(4, engine="queue", device="cpu")
+s = enc.push(x) + enc.finish()
+dec = zl.Inf(1000)
+dec.src(s)
+dec.src(b"")
+parts = []
+while (tok := dec.decode()) == "flush":
+    parts.append(dec.flush())
+assert tok == "end" and b"".join(parts) + dec.flush() == x == zlib.decompress(s)
+parts = []
+streaming.higher_uncompress(iter([de.deflate(x, 1, device="cpu"), b""]).__next__,
+                            parts.append)
+assert b"".join(parts) == x
+q = lz.Queue(1 << 14)
+lz.compress_into(q, x[:3000])
+assert de.reconstruct(q.as_array().tolist()) == x[:3000]
 assert not any(m.split(".")[0] in ("jax", "decompress_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("ok", len(out))

@@ -48,6 +48,7 @@ from decompress_tpu_torch import de, gz, zl
 from decompress_tpu_torch.ops import bitpack, inflate_cu, lz77
 from decompress_tpu_torch.parallel import sharded
 from ref_host import ref_host  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 MEMBER = 4096
 

@@ -19,6 +19,7 @@ import pytest
 from decompress_tpu import zl as ref_zl
 from decompress_tpu_torch import de, zl
 from ref_host import ref_host  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 CORPUS = pathlib.Path(__file__).parent / "corpus"
 SEG = 4096
