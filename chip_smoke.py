@@ -68,7 +68,27 @@ Phases, each raising at its first failure:
      the one-shot gz.decompress's); the mark path, histograms, literal bits
      and gains against their plain versions on a real queue-engine batch
      (8 chunk rows of 16,384 bytes, T = 49,152, P = 2^14) and on a streamed
-     segment's batch (one row behind its 32 KiB history), with device times.
+     segment's batch (one row behind its 32 KiB history), with device times;
+ 10. LZO, the fixed-Huffman step, meshes, two processes and the CLI, each
+     output checked against the reference's digest (derived on the CPU by
+     scripts/ref_phase10_digests.py): (a) lzo.compress of the corpus at
+     level 6 on the card, its cold and warm walls split into the device
+     analysis (lzo._analyze) and the host emission, the mark path and
+     histograms launched in the warm run, lzo.uncompress of it and the
+     host state machine (_uncompress_python) on the first 1 MiB's stream;
+     (b) ops.pipeline.fixed_deflate_segments at B = 8, T = 2^17 of the
+     corpus's first 1 MiB (no history, bfinal 1): totals and words, each
+     row decoded by zlib, both kernels launched, its walls and a profile;
+     (c) parallel.compress_step_sharded on make_mesh() and on the card
+     twice, equal to (b) in words, sizes and total bits; (d) the level-6
+     sharded archive on both meshes (the single-process digest) and with
+     shared_tree, each decoded by gzip and on the card with no serial
+     fallback; (e) two worker processes on the card (gloo, a file://
+     rendezvous in a temporary directory) each writing
+     sharded_gzip_compress_multihost of the corpus, both the
+     single-process archive, with each rank's walls; (f) the CLI in
+     subprocesses, the corpus on stdin: -f gzip, zlib and lzo at level 6
+     against their digests, and -d of each back to the corpus.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the path that uses them (the default
 level-6 gz.compress for the compression kernels, the sharded round trip
@@ -105,6 +125,18 @@ ZL_EXPECT = (2854685, "867f04b6e8d6f5af6af609c852ab2d22819744e0fc20dc097eb7676e7
 SHARDED_ZL_EXPECT = (2916197, "f99b46c27df2da6404a8ca7dfe04a12e08f66af07efde06eb3e0e483ea0c0c85")
 #: the reference's zl.Def(6, engine="queue") of the corpus's first 1 MiB
 QUEUE_EXPECT = (411690, "c548d824294e50fdcd45262834290459e959aa7d45f00b181c58a28824bb8461")
+#: phase 10, by the reference on the CPU (scripts/ref_phase10_digests.py):
+#: lzo.compress level 6 of the corpus, fixed_deflate_segments of its first
+#: FIXED_B x FIXED_SEG bytes (totals, sha256 of the little-endian words),
+#: and the level-6 sharded archive with shared_tree
+LZO_EXPECT = (3414045, "74e5e6531668cb546107e5c87a2640c975ca473e673e91fe8bc6dbd8e92ec4c2")
+FIXED_B, FIXED_SEG = 8, 1 << 17
+FIXED_TOTALS = (421716, 537445, 546433, 543372, 536824, 536358, 512240, 432550)
+FIXED_WORDS_SHA = "88573517f5b1928d0b786c55a0621c023faa573db806bdba79406ddcb8853ab3"
+SHARED_EXPECT = (3025290, "a8c31675299b4645f5f7cb918eacce754e0f2a902042aa7b58551eb39cdb9573")
+#: seconds a phase-10 worker process or CLI run may take
+MULTIHOST_TIMEOUT = 300
+CLI_TIMEOUT = 300
 #: bytes a streaming refill or decode feed carries
 STREAM_PIECE = 65536
 #: Adler-32 lengths checked against zlib.adler32 (chunk and NMAX edges)
@@ -515,6 +547,12 @@ def stage_split(torch, fn, card, title: str = "level-6 gz.compress",
         for label, (mod, attr) in stages.items():
             setattr(mod, attr, originals[label])
 
+    profile_run(torch, fn, card, title)
+
+
+def profile_run(torch, fn, card, title: str) -> None:
+    """One profiled run of fn(): its wall, the device's busy share over the
+    kernels' span, and device time by kernel (the top 20 and the port's)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1053,6 +1091,235 @@ def streaming_path(torch, dev, data: bytes, wrappers, card) -> None:
                   f"{stat['device_ms']:.4f} ms warm, {stat['device_cold_ms']:.4f} ms "
                   f"cold, bound {stat['bound_ms']:.4f} ms [{card}]", flush=True)
 
+#: phase 10's two-process worker: argv = rendezvous URI, rank, archive path
+_MULTIHOST_WORKER = """
+import sys, time
+sys.path.insert(0, sys.argv[4])
+import torch
+import chip_smoke
+from decompress_tpu_torch import _build
+from decompress_tpu_torch.parallel import multihost
+
+init, rank, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+multihost.initialize(init, 2, rank)
+data = chip_smoke.corpus_bytes()
+walls = []
+for _ in range(2):  # cold, then warm with the launch counts set to 0
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    arch = multihost.sharded_gzip_compress_multihost(data, 6)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t)
+with open(out, "wb") as f:
+    f.write(arch)
+print(f"rank {rank}: {len(arch)} bytes, wall cold {walls[0]:.4f} s, warm {walls[1]:.4f} s; "
+      f"launches {dict(sorted(_build.LAUNCHES.items()))}")
+torch.distributed.destroy_process_group()
+"""
+
+
+def digest_of(out: bytes) -> tuple[int, str]:
+    return len(out), hashlib.sha256(out).hexdigest()
+
+
+def expect(label: str, out: bytes, want: tuple[int, str]) -> None:
+    """Raise unless ``out`` has the reference's size and sha256."""
+    got = digest_of(out)
+    print(f"{label}: {got[0]} bytes sha256 {got[1]}", flush=True)
+    if got != want:
+        raise AssertionError(f"{label} differs from the reference: {got}")
+
+
+def lzo_path(torch, data: bytes, card) -> dict:
+    """Phase 10a: lzo.compress of the corpus on the card, its analysis and
+    emission walls apart; both decoders restore it."""
+    from decompress_tpu_torch import _build, lzo
+
+    analyze = lzo._analyze
+    spent = [0.0]
+
+    def timed_analyze(*args, **kw):
+        out, dt = timed_call(torch, lambda: analyze(*args, **kw))
+        spent[0] += dt
+        return out
+
+    def run():
+        spent[0] = 0.0
+        out, wall = timed_call(torch, lambda: lzo.compress(data, level=6, device="cuda"))
+        return out, wall, spent[0]
+
+    lzo._analyze = timed_analyze
+    try:
+        _, cold, cold_an = run()
+        _build.LAUNCHES.clear()
+        out, warm, warm_an = run()
+        launches = {n: _build.LAUNCHES[n] for n in ("mark_path", "histograms")}
+    finally:
+        lzo._analyze = analyze
+    expect("lzo: lzo.compress level 6", out, LZO_EXPECT)
+    if [n for n, c in launches.items() if c <= 0]:
+        raise AssertionError(f"lzo.compress did not launch both kernels: {launches}")
+    print(f"lzo: launches {launches}; wall cold {cold:.4f} s (analysis {cold_an:.4f}, "
+          f"emission {cold - cold_an:.4f}), warm {warm:.4f} s (analysis {warm_an:.4f}, "
+          f"emission {warm - warm_an:.4f}) = {len(data) / warm / 1e6:.2f} MB/s [{card}]",
+          flush=True)
+    back, dec = timed_call(torch, lambda: lzo.uncompress(out))
+    if back != data:
+        raise AssertionError("lzo.uncompress does not restore the corpus")
+    head = data[:1 << 20]
+    head_c, head_s = timed_call(torch, lambda: lzo.compress(head, level=6, device="cuda"))
+    back, py_s = timed_call(torch, lambda: lzo._uncompress_python(head_c))
+    if back != head:
+        raise AssertionError("lzo._uncompress_python does not restore the first 1 MiB")
+    print(f"lzo: uncompress (native) of the corpus {dec:.4f} s; the first 1 MiB: "
+          f"compress {head_s:.4f} s, decode by the host state machine {py_s:.4f} s "
+          f"[{card}]", flush=True)
+    return launches
+
+
+def fixed_step_path(torch, dev, data: bytes, card):
+    """Phase 10b and c: fixed_deflate_segments of the corpus's first
+    FIXED_B x FIXED_SEG bytes, each row decoded by zlib; then
+    compress_step_sharded on make_mesh() and on the card twice."""
+    import zlib
+
+    import numpy as np
+
+    from decompress_tpu_torch import _build, parallel
+    from decompress_tpu_torch.ops import bitpack, lz77, pipeline
+
+    rows = np.zeros((FIXED_B, lz77.HIST + FIXED_SEG), np.uint8)
+    rows[:, lz77.HIST:] = np.frombuffer(data[:FIXED_B * FIXED_SEG], np.uint8).reshape(
+        FIXED_B, FIXED_SEG)
+    n = np.full(FIXED_B, FIXED_SEG, np.int32)
+    zero, one = np.zeros(FIXED_B, np.int32), np.ones(FIXED_B, np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (rows, n, zero, one)]
+
+    def step():
+        return pipeline.fixed_deflate_segments(*args, level=6, seg_len=FIXED_SEG)
+
+    _, cold, warm, launches = cold_warm(torch, step, ("mark_path", "histograms"))
+    words, bits = step()
+    raw = words.cpu().view(torch.int32).numpy().astype("<i4").tobytes()
+    sha = hashlib.sha256(raw).hexdigest()
+    print(f"fixed step: B={FIXED_B} seg_len={FIXED_SEG}: totals {bits.tolist()}, words "
+          f"sha256 {sha}; launches {launches}", flush=True)
+    if bits.tolist() != list(FIXED_TOTALS) or sha != FIXED_WORDS_SHA:
+        raise AssertionError("fixed_deflate_segments differs from the reference")
+    if [k for k, c in launches.items() if c <= 0]:
+        raise AssertionError(f"fixed_deflate_segments did not launch both kernels: {launches}")
+    for i in range(FIXED_B):
+        body = bitpack.words_to_bytes(words[i], int(bits[i]))
+        if zlib.decompressobj(-15).decompress(body) != rows[i, lz77.HIST:].tobytes():
+            raise AssertionError(f"fixed step row {i} does not decode to its payload")
+    print(f"fixed step: every row decodes with zlib; wall cold {cold:.4f} s, warm "
+          f"{1e3 * warm:.1f} ms = {FIXED_B * FIXED_SEG / warm / 1e6:.2f} MB/s [{card}]",
+          flush=True)
+    profile_run(torch, step, card, "fixed step")
+
+    for mesh in (parallel.make_mesh(), (dev, dev)):
+        _build.LAUNCHES.clear()
+        (w, sizes_all, total), s_wall = timed_call(
+            torch, lambda: parallel.compress_step_sharded(mesh, *args, level=6,
+                                                          seg_len=FIXED_SEG))
+        nd = len(mesh)
+        want_sizes = bits.reshape(nd, FIXED_B // nd).repeat(1, nd)
+        if not (torch.equal(w, words) and torch.equal(sizes_all, want_sizes)
+                and int(total) == int(bits.sum())):
+            raise AssertionError(f"compress_step_sharded on {nd} devices differs from (b)")
+        print(f"compress_step_sharded on {nd} device(s) {[str(d) for d in mesh]}: equal to "
+              f"(b), total_bits {int(total)}; launches "
+              f"{ {k: _build.LAUNCHES[k] for k in ('mark_path', 'histograms')} }; "
+              f"wall {1e3 * s_wall:.1f} ms [{card}]", flush=True)
+
+
+def mesh_path(torch, dev, data: bytes, card) -> None:
+    """Phase 10d: the mesh archives on make_mesh() and on the card twice,
+    and the shared-tree archive, each decoded by gzip and on the card."""
+    from decompress_tpu_torch import _build, parallel
+    from decompress_tpu_torch.parallel import sharded
+
+    wrappers = ("mark_path", "histograms", "litbits", "gain", "build_slots", "crc32_rows")
+    for label, mesh, kw, want in [
+            ("make_mesh()", parallel.make_mesh(), {}, SHARDED_EXPECT),
+            ("(cuda:0, cuda:0)", (dev, dev), {}, SHARDED_EXPECT),
+            ("make_mesh(), shared_tree", parallel.make_mesh(), {"shared_tree": True},
+             SHARED_EXPECT)]:
+        archive, cold, warm, launches = cold_warm(
+            torch, lambda: sharded.sharded_gzip_compress(data, 6, mesh=mesh, **kw), wrappers)
+        expect(f"mesh: sharded_gzip_compress on {label}", archive, want)
+        if [k for k, c in launches.items() if c <= 0]:
+            raise AssertionError(f"mesh archive on {label} did not launch {launches}")
+        if gzip.decompress(archive) != data:
+            raise AssertionError(f"gzip.decompress does not restore the archive on {label}")
+        sharded.serial_fallbacks.clear()
+        _build.LAUNCHES.clear()
+        back, d_wall = timed_call(
+            torch, lambda: sharded.sharded_gzip_decompress(archive, device="cuda"))
+        d_launches = {k: _build.LAUNCHES[k] for k in ("decode", "crc32_rows")}
+        if back != data or sharded.serial_fallbacks or min(d_launches.values()) <= 0:
+            raise AssertionError(f"sharded_gzip_decompress of the archive on {label}: "
+                                 f"serial fallbacks {dict(sharded.serial_fallbacks)}, "
+                                 f"launches {d_launches}")
+        print(f"mesh: {label}: launches {launches}; compress wall cold {cold:.4f} s, warm "
+              f"{warm:.4f} s; card decode {d_wall:.4f} s, launches {d_launches}, no serial "
+              f"fallback [{card}]", flush=True)
+
+
+def multiprocess_path(card) -> None:
+    """Phase 10e: two processes on the card (gloo, a file:// rendezvous in
+    a temporary directory), each writing sharded_gzip_compress_multihost of
+    the corpus; both archives must be the single-process archive."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init = pathlib.Path(tmp, "rendezvous").as_uri()
+        outs = [pathlib.Path(tmp, f"rank{r}.gz") for r in range(2)]
+        env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get(
+            "PYTHONPATH", ""))
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _MULTIHOST_WORKER, init, str(r), str(outs[r]), str(ROOT)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=MULTIHOST_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, (out, err)) in enumerate(zip(procs, logs)):
+            print(out.strip(), flush=True)
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} failed ({p.returncode}): {err[-2000:]}")
+        for r in range(2):
+            expect(f"two processes: rank {r}'s archive", outs[r].read_bytes(),
+                   SHARDED_EXPECT)
+    print(f"two processes: both ranks wrote the single-process archive [{card}]", flush=True)
+
+
+def cli_path(data: bytes, card) -> None:
+    """Phase 10f: python -m decompress_tpu_torch.cli on the card, the
+    corpus on stdin, in each direction."""
+    def run(args, stdin):
+        t = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "decompress_tpu_torch.cli", *args],
+                           input=stdin, capture_output=True, cwd=ROOT, timeout=CLI_TIMEOUT)
+        wall = time.perf_counter() - t
+        if p.returncode != 0:
+            raise AssertionError(f"cli {args} failed: {p.stderr.decode()[-2000:]}")
+        return p.stdout, wall
+
+    for fmt, want in [("gzip", EXPECT[None]), ("zlib", ZL_EXPECT), ("lzo", LZO_EXPECT)]:
+        out, c_wall = run(["-f", fmt, "-l", "6"], data)
+        expect(f"cli: -f {fmt} -l 6", out, want)
+        back, d_wall = run(["-d", "-f", fmt], out)
+        if back != data:
+            raise AssertionError(f"cli -d -f {fmt} does not restore the corpus")
+        print(f"cli: -f {fmt}: compress {c_wall:.4f} s, -d {d_wall:.4f} s (process walls) "
+              f"[{card}]", flush=True)
+
 
 def main() -> int:
     import torch
@@ -1110,6 +1377,13 @@ def main() -> int:
 
     # ---- 9. streaming ----
     streaming_path(torch, dev, data, wrappers, card)
+
+    # ---- 10. LZO, the fixed step, meshes, two processes, the CLI ----
+    lzo_path(torch, data, card)
+    fixed_step_path(torch, dev, data, card)
+    mesh_path(torch, dev, data, card)
+    multiprocess_path(card)
+    cli_path(data, card)
 
     kernels = [
         dict(name=name, route="cuda",

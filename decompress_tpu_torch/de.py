@@ -565,15 +565,26 @@ def _resolve_device(device) -> torch.device:
 def deflate(data, level: int | None = None, *, segment_size: int | None = None,
             dynamic: bool | None = None, window_bits: int | None = None,
             dictionary: bytes | None = None, strategy: str | None = None,
-            device="cuda") -> bytes:
+            config=None, device="cuda") -> bytes:
     """One-shot DEFLATE compress (level 0 = stored), byte-identical to
     ``decompress_tpu.de.deflate`` with the same arguments.
 
     ``dynamic=False`` or ``strategy="fixed"`` forces fixed-Huffman
     blocks; ``window_bits`` (8..15) restricts match distances;
     ``dictionary`` seeds the match window; the default level is 6.
-    Unknown levels raise ValueError.  The reference's ``config=`` object
-    argument is not ported."""
+    Unknown levels raise ValueError.  A ``config``
+    (``utils.config.CodecConfig``, validated first) supplies level,
+    segment size, ``dynamic`` and window bits where those arguments are
+    not given, and its device where ``device`` is left at "cuda"."""
+    # explicit arguments win over the config object, which wins over
+    # the built-in defaults
+    if config is not None:
+        config.validate()
+        level = config.level if level is None else level
+        segment_size = segment_size or config.segment_size
+        dynamic = config.dynamic_blocks if dynamic is None else dynamic
+        window_bits = config.window_bits if window_bits is None else window_bits
+        device = config.device if device == "cuda" else device
     dev = _resolve_device(device)
     level = 6 if level is None else level
     dynamic = True if dynamic is None else dynamic

@@ -6,7 +6,9 @@ bit offsets; each element's masked code lands in at most two 32-bit
 words, and the contributions within a word are bit-disjoint, so a word
 is the difference of a running sum of contributions taken at the first
 element of that word and of the next one.  The reference is XLA code,
-not a Pallas kernel; this is plain torch.
+not a Pallas kernel; this is plain torch.  :func:`pack_bits_device` is
+the generic packer of the reference's fixed-Huffman device step
+(``ops/pipeline.py``) on the same machinery.
 
 The running sums run in int64 with no wraparound (each contribution is
 < 2^32), so the differences are the exact per-word sums the reference
@@ -15,6 +17,7 @@ gets mod 2^32.  Words come back as int64 holding uint32 values.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -98,3 +101,33 @@ def pack_slot_planes(v0, n0, v1, n1, hdr_vals, hdr_bits, eob_vals, eob_bits,
     toff = torch.cat([hdr_off, eob_off], 1)
     words = words + _scatter_tiny(_mask_vals(tv, tn), toff, out_words)
     return words & _M32, total, off0, posbits
+
+
+def pack_bits_device(values, nbits, out_words: int):
+    """Pack ``values`` (the low ``nbits`` of each, 0..31) LSB-first, on
+    their device; counterpart of the reference's ``pack_bits_device``.
+
+    values: int[..., N]; nbits: int[..., N] (leading dims are batch).
+    Returns ``(words uint32[..., out_words], total_bits int32[...])``.
+    Elements whose offset lies past ``32 * out_words`` bits are dropped.
+    Elements with ``nbits == 0`` add nothing."""
+    lead = values.shape[:-1]
+    v = values.reshape(-1, values.shape[-1])
+    nb = nbits.reshape(-1, nbits.shape[-1]).to(torch.int64)
+    offsets = torch.cumsum(nb, 1) - nb
+    total = offsets[:, -1] + nb[:, -1]
+    words = _plane_words_b(_mask_vals(v, nb), offsets, out_words) & _M32
+    # uint32 from the int64 words, by way of their two's-complement int32
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    words = words.to(torch.int32).view(torch.uint32)
+    return (words.reshape(*lead, out_words),
+            total.to(torch.int32).reshape(lead))
+
+
+def words_to_bytes(words, total_bits: int) -> bytes:
+    """uint32 words (a tensor or an array) -> the first
+    ceil(total_bits / 8) bytes of the stream, on the host."""
+    if isinstance(words, torch.Tensor):
+        words = words.cpu().view(torch.int32).numpy()
+    b = np.ascontiguousarray(words).astype("<u4", copy=False).view(np.uint8)
+    return b[: (int(total_bits) + 7) // 8].tobytes()

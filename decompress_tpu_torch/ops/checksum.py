@@ -1,6 +1,7 @@
 """CRC-32 and Adler-32 on the card.
 
-Counterpart of ``decompress_tpu/ops/checksum.py``.  :func:`crc32_batch_device`
+Counterpart of ``decompress_tpu/ops/checksum.py``.  :func:`crc32_batch_device`,
+:func:`crc32_batch` (host rows)
 and :func:`crc32` are ``crc_cu.crc32_rows`` (one CUDA kernel computes
 each row's whole CRC-32, init and final XOR included) and one copy to
 the host.
@@ -196,6 +197,20 @@ def crc32_batch_device(data_2d: torch.Tensor, lengths) -> np.ndarray:
     else:
         lengths = torch.from_numpy(np.asarray(lengths, np.int32)).to(data_2d.device)
     return crc_cu.crc32_rows(data_2d, lengths).cpu().numpy().astype(np.uint32)
+
+
+def crc32_batch(data_2d: np.ndarray, lengths, *, device="cuda") -> np.ndarray:
+    """CRC-32 of each row's first ``lengths[i]`` bytes of a host uint8[M, L]
+    array, on ``device`` (:func:`crc_cu.crc32_rows`); bytes past a length
+    may hold anything.  uint32[M] numpy, 0 for an empty row."""
+    from .. import de
+
+    dev = de._resolve_device(device)
+    data_2d = np.asarray(data_2d, dtype=np.uint8)
+    lens = np.asarray(lengths, np.int32)
+    # bytes past each length are zeroed: the plain version reads them
+    rows = np.where(np.arange(data_2d.shape[1])[None, :] < lens[:, None], data_2d, 0)
+    return crc32_batch_device(torch.from_numpy(rows.astype(np.uint8)).to(dev), lens)
 
 
 def crc32(data, value: int = 0, *, device="cuda") -> int:

@@ -735,19 +735,38 @@ def _all_exact(res) -> bool:
     return bool(res["exact"].all())
 
 
+def _repair_greedy(res, data, n_valid, hist_len, *, level: int, seg_len: int,
+                   window_bits: int, hist: int,
+                   two_round: bool) -> dict[str, torch.Tensor]:
+    """Make an inexact round A byte-exact with no round B: trim its
+    candidates and re-parse (with ``two_round``, dist_counts too) up to
+    _TRIM_RETRIES times, then re-run with exact extension."""
+    lazy = level_config(level).lazy
+    cl, cd = res["cand_length"], res["cand_dist"]
+    for _ in range(_TRIM_RETRIES):
+        cl = lz77_trim_candidates(data, res["is_match"], res["length"],
+                                  res["dist"], cl, cd, n_valid,
+                                  seg_len=seg_len, hist=hist)
+        res = lz77_reparse_greedy(data, cl, cd, n_valid, seg_len=seg_len,
+                                  hist=hist, lazy=lazy, two_round=two_round)
+        if _all_exact(res):
+            return res
+    return lz77_analyze(data, n_valid, hist_len, level=level, seg_len=seg_len,
+                        force_exact=True, window_bits=window_bits, hist=hist)
+
+
 def analyze2_finish(res, data, n_valid, hist_len, *, level: int,
                     seg_len: int, window_bits: int = 15,
                     hist: int = HIST) -> dict[str, torch.Tensor]:
     """Finish a round-A result: repair it until it is byte-exact and, for
     the two-round levels, run the cost-aware round B on its candidates.
 
-    An inexact round A has its candidates trimmed first.  Greedy levels
-    then re-parse (trim and re-parse up to _TRIM_RETRIES times, then
-    re-run with exact extension).  Two-round levels build bit-cost
-    tables from round A's (unrepaired) histograms, mine hot strides,
-    and run round B up to _TRIM_RETRIES times, trimming after each
-    inexact pass; then one exact-extension round A feeds a final,
-    unchecked round B."""
+    Greedy levels repair an inexact round A with :func:`_repair_greedy`.
+    At the two-round levels an inexact round A has its candidates
+    trimmed first; then bit-cost tables are built from round A's
+    (unrepaired) histograms, hot strides mined, and round B run up to
+    _TRIM_RETRIES times, trimming after each inexact pass; then one
+    exact-extension round A feeds a final, unchecked round B."""
     cfg = level_config(level)
     cd = res["cand_dist"]
 
@@ -758,20 +777,14 @@ def analyze2_finish(res, data, n_valid, hist_len, *, level: int,
 
     cl = res["cand_length"]
     exact_a = cfg.exact or _all_exact(res)
-    if not exact_a:
-        cl = trim(res, cl)
     if not cfg.two_round:
         if exact_a:
             return res
-        for _ in range(_TRIM_RETRIES):
-            res = lz77_reparse_greedy(data, cl, cd, n_valid, seg_len=seg_len,
-                                      hist=hist, lazy=cfg.lazy)
-            if _all_exact(res):
-                return res
-            cl = trim(res, cl)
-        return lz77_analyze(data, n_valid, hist_len, level=level,
-                            seg_len=seg_len, force_exact=True,
-                            window_bits=window_bits, hist=hist)
+        return _repair_greedy(res, data, n_valid, hist_len, level=level,
+                              seg_len=seg_len, window_bits=window_bits,
+                              hist=hist, two_round=False)
+    if not exact_a:
+        cl = trim(res, cl)
 
     dev = data.device
     lit_cost, dist_cost = _cost_tables_host(res["hist_lit"].cpu().numpy(),
@@ -801,13 +814,39 @@ def analyze2_finish(res, data, n_valid, hist_len, *, level: int,
     return round_b(resx["cand_length"], resx["cand_dist"])
 
 
-def analyze2(data, n_valid, hist_len, *, level: int, seg_len: int,
-             window_bits: int = 15, hist: int = HIST) -> dict[str, torch.Tensor]:
-    """The full analysis of a level: round A (:func:`lz77_analyze`), then
-    :func:`analyze2_finish` (the repairs and, at the two-round levels,
-    round B); the result is byte-exact."""
+def analyze(data, n_valid, hist_len, *, level: int, seg_len: int,
+            window_bits: int = 15, hist: int = HIST) -> dict[str, torch.Tensor]:
+    """Round A (:func:`lz77_analyze`) made byte-exact, with no round B:
+    fingerprint overestimates the verification reports are repaired by
+    the trim-and-reparse loop, and if trims keep surfacing collisions
+    after _TRIM_RETRIES passes, by an exact-extension re-run.
+
+    ``window_bits`` (8..15) restricts match distances for small windows."""
+    cfg = level_config(level)
     res = lz77_analyze(data, n_valid, hist_len, level=level, seg_len=seg_len,
                        window_bits=window_bits, hist=hist)
+    if cfg.exact or _all_exact(res):
+        return res
+    return _repair_greedy(res, data, n_valid, hist_len, level=level,
+                          seg_len=seg_len, window_bits=window_bits, hist=hist,
+                          two_round=cfg.two_round)
+
+
+def analyze2_start(data, n_valid, hist_len, *, level: int, seg_len: int,
+                   window_bits: int = 15, hist: int = HIST) -> dict[str, torch.Tensor]:
+    """Round A with no host sync, so a caller can queue several batches'
+    round A on the card before the first :func:`analyze2_finish`."""
+    return lz77_analyze(data, n_valid, hist_len, level=level, seg_len=seg_len,
+                        window_bits=window_bits, hist=hist)
+
+
+def analyze2(data, n_valid, hist_len, *, level: int, seg_len: int,
+             window_bits: int = 15, hist: int = HIST) -> dict[str, torch.Tensor]:
+    """The full analysis of a level: round A (:func:`analyze2_start`), then
+    :func:`analyze2_finish` (the repairs and, at the two-round levels,
+    round B); the result is byte-exact."""
+    res = analyze2_start(data, n_valid, hist_len, level=level, seg_len=seg_len,
+                         window_bits=window_bits, hist=hist)
     return analyze2_finish(res, data, n_valid, hist_len, level=level,
                            seg_len=seg_len, window_bits=window_bits, hist=hist)
 

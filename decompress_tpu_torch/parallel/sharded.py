@@ -1,7 +1,7 @@
 """The member-parallel gzip archive on the card (indexed write and decode),
 and the member-parallel zlib stream.
 
-Counterpart of ``decompress_tpu/parallel/sharded.py`` on one device.
+Counterpart of ``decompress_tpu/parallel/sharded.py``.
 
 * :func:`sharded_gzip_compress` splits the input into independent
   members of ``member_size`` bytes (gzip allows concatenated members),
@@ -36,8 +36,22 @@ is never replaced by a host decode.
   flush (an empty stored block) between them, with the stream's
   Adler-32 computed on the card.
 
-The reference's multi-device ``mesh`` and ``config`` arguments and its
-``expand`` choice (native host or device expansion) are not ported.
+* A mesh (:func:`make_mesh`) is a tuple of ``torch.device``s.  The
+  compressors take ``mesh=``: each chunk of ``MAX_DEVICE_BATCH`` members
+  per mesh device is split as the reference's ``P("dp")`` shard splits
+  it, rows ``[8k, 8k + 8)`` to device k, each device's rows analysed and
+  packed there, and the members gathered on the host by index, so the
+  archive is byte-identical for any mesh.  One host thread dispatches
+  every device's groups in turn, and round A is host-bound (thousands
+  of small launches a group), so an in-process mesh gives the same
+  bytes but no speedup over one card.  To scale across cards, run one
+  process per card: ``parallel.multihost.sharded_gzip_compress_multihost``.
+* :func:`compress_step_sharded` runs the fixed-Huffman device step
+  (``ops/pipeline.fixed_deflate_segments``) over a mesh with the
+  reference's output layout (its all-gathered sizes and summed bits).
+
+The reference's ``expand`` choice of the decode (native host or device
+expansion) is not ported.
 """
 
 from __future__ import annotations
@@ -49,7 +63,8 @@ import torch
 
 from .. import de, gz, zl
 from ..core import bitstream, huffman
-from ..ops import checksum, inflate, inflate_cu, lz77
+from ..ops import checksum, inflate, inflate_cu, lz77, pipeline
+from ..utils import profiling
 
 INDEX_ID = b"TZ"  # gzip FEXTRA subfield carrying member byte sizes
 SPLIT_ID = b"TS"  # FEXTRA subfield: per-member symbol-stream split points
@@ -69,6 +84,32 @@ TB_CMDS_CAP = 65535
 serial_fallbacks: collections.Counter = collections.Counter()
 
 
+def make_mesh(n_devices: int | None = None, device="cuda") -> tuple:
+    """A mesh: the first ``n_devices`` cards (all of them by default) as a
+    tuple of ``torch.device``s, or with ``device="cpu"`` that many CPU
+    handles (default 1), the counterpart of the reference's virtual CPU
+    devices.  Raises ``ValueError`` where there are fewer cards, and
+    without CUDA where ``device`` is "cuda".  Any tuple of devices is a
+    mesh, one card repeated included."""
+    dev = de._resolve_device(device)
+    if dev.type == "cpu":
+        return (dev,) * (1 if n_devices is None else n_devices)
+    have = torch.cuda.device_count()
+    n = have if n_devices is None else n_devices
+    if have < n:
+        raise ValueError(f"need {n} devices, have {have}")
+    return tuple(torch.device("cuda", i) for i in range(n))
+
+
+def _mesh_devices(mesh, device) -> tuple:
+    """The resolved devices of ``mesh`` (a sequence of devices), or of
+    ``device`` alone where ``mesh`` is None."""
+    devs = tuple(de._resolve_device(d) for d in ((device,) if mesh is None else mesh))
+    if not devs:
+        raise ValueError("empty mesh")
+    return devs
+
+
 def _batched_members(arr: np.ndarray, member_size: int, hist: int):
     n = arr.size
     m = max(1, (n + member_size - 1) // member_size)
@@ -82,19 +123,36 @@ def _batched_members(arr: np.ndarray, member_size: int, hist: int):
     return data, n_valid
 
 
-def _compress_members(arr, level, member_size, dev, final_flags=None,
+def _shard_rows(lo: int, m: int, d: int) -> list:
+    """The chunk of members from ``lo`` split over a mesh of ``d``
+    devices, as the reference's ``_shard_batch`` splits it: the chunk is
+    MAX_DEVICE_BATCH * d members, a tail chunk of b is padded to max(d,
+    2^ceil(log2 b)) rows and then to a multiple of d, and device k takes
+    the k-th run of rows.  Returns (device index, first member, valid
+    rows, rows) for each device that holds a valid row."""
+    chunk = de.MAX_DEVICE_BATCH * d
+    hi = min(lo + chunk, m)
+    b = hi - lo
+    b_pad = chunk if b == chunk else max(d, 1 << (b - 1).bit_length())
+    rows = -(-b_pad // d)
+    return [(k, lo + k * rows, min(rows, hi - lo - k * rows), rows)
+            for k in range(d) if k * rows < b]
+
+
+def _compress_members(arr, level, member_size, mesh, final_flags=None,
                       want_crc=True, shared_tree=False):
-    """Member compression on ``dev``, in chunks of MAX_DEVICE_BATCH
-    members (a tail chunk padded as ``de._batch_rows`` pads it); member i
-    is a final block where ``final_flags[i]`` (default: every member).
+    """Member compression over ``mesh`` (a tuple of devices), in chunks of MAX_DEVICE_BATCH members per mesh device split as
+    :func:`_shard_rows` splits them; member i is a final block where
+    ``final_flags[i]`` (default: every member).
 
     Returns (parts, n_valid, crcs) where parts[i] is either ("stored",
     payload_u8) or ("packed", packed_u8, total_bits, splits, ncmds),
     splits being the N_SPLITS-1 (bit_off, cmd_idx, out_off) triples
-    (bit_off 0 = none), and crcs the members' CRC-32s computed on the card
-    (None without ``want_crc``).  ``shared_tree`` analyzes every chunk
-    first, sums the histograms, builds one dynamic tree and packs every
-    member with it."""
+    (bit_off 0 = none), and crcs the members' CRC-32s computed on their
+    devices (None without ``want_crc``), all by member index.
+    ``shared_tree`` analyzes every chunk first, sums the histograms,
+    builds one dynamic tree and packs every member with it."""
+    devs = tuple(mesh)
     # members are independent (window reset at boundaries), so they run
     # with no history prefix
     hist = 0
@@ -102,38 +160,48 @@ def _compress_members(arr, level, member_size, dev, final_flags=None,
     m = data.shape[0]
     if final_flags is None:
         final_flags = np.ones(m, bool)
-    chunk = de.MAX_DEVICE_BATCH
+    chunk = de.MAX_DEVICE_BATCH * len(devs)
     out_words = (9 * member_size) // 32 + 2 * de._HDR_PAD
 
-    def analyze(lo):
-        hi = min(lo + chunk, m)
-        b = hi - lo
-        b_pad = de._batch_rows(b)
-        cdata = np.zeros((b_pad, data.shape[1]), dtype=np.uint8)
-        cdata[:b] = data[lo:hi]
-        cnv = np.zeros(b_pad, np.int32)
-        cnv[:b] = n_valid[lo:hi]
+    def start(k, glo, b, rows):
+        dev = devs[k]
+        cdata = np.zeros((rows, data.shape[1]), dtype=np.uint8)
+        cdata[:b] = data[glo:glo + b]
+        cnv = np.zeros(rows, np.int32)
+        cnv[:b] = n_valid[glo:glo + b]
         d_data = torch.from_numpy(cdata).to(dev)
         d_nv = torch.from_numpy(cnv).to(dev)
-        d_hl = torch.zeros(b_pad, dtype=torch.int32, device=dev)
-        res = lz77.analyze2(d_data, d_nv, d_hl, level=level,
-                            seg_len=member_size, hist=hist)
+        d_hl = torch.zeros(rows, dtype=torch.int32, device=dev)
+        with profiling.annotate("lz77_analyze_dispatch"):
+            res0 = lz77.analyze2_start(d_data, d_nv, d_hl, level=level,
+                                       seg_len=member_size, hist=hist)
+        return glo, b, rows, cdata, cnv, d_data, d_nv, d_hl, res0
+
+    def finish(pend):
+        glo, b, rows, cdata, cnv, d_data, d_nv, d_hl, res0 = pend
+        res = lz77.analyze2_finish(res0, d_data, d_nv, d_hl, level=level,
+                                   seg_len=member_size, hist=hist)
         hist_lit = res["hist_lit"].cpu().numpy()[:b]
         hist_dist = res["hist_dist"].cpu().numpy()[:b]
-        return lo, b, b_pad, cdata, cnv, d_data, res, hist_lit, hist_dist
+        return glo, b, rows, cdata, cnv, d_data, res, hist_lit, hist_dist
+
+    def analyze(lo):
+        # every device's round A goes out before the first finish syncs
+        return [finish(p) for p in [start(*g) for g in _shard_rows(lo, m, len(devs))]]
 
     def pack(st, shared):
-        lo, b, b_pad, cdata, cnv, d_data, res, hist_lit, hist_dist = st
+        glo, b, rows, cdata, cnv, d_data, res, hist_lit, hist_dist = st
         (hdr_vals, hdr_bits), tabs, kinds = de.plan_blocks(
-            hist_lit, hist_dist, cnv[:b], final_flags[lo:lo + b], pad_to=b_pad,
+            hist_lit, hist_dist, cnv[:b], final_flags[glo:glo + b], pad_to=rows,
             shared_tree=shared or False)
-        pk = de.pack_segments(res, d_data[:, hist:], hdr_vals, hdr_bits, *tabs,
-                              out_words=out_words, n_splits=N_SPLITS,
-                              split_stride=SPLIT_STRIDE, split_bits=SPLIT_BITS)
+        with profiling.annotate("bitpack"):
+            pk = de.pack_segments(res, d_data[:, hist:], hdr_vals, hdr_bits, *tabs,
+                                  out_words=out_words, n_splits=N_SPLITS,
+                                  split_stride=SPLIT_STRIDE, split_bits=SPLIT_BITS)
         return b, cdata, cnv, d_data, kinds, pk
 
     if shared_tree:
-        staged = [analyze(lo) for lo in range(0, m, chunk)]
+        staged = [st for lo in range(0, m, chunk) for st in analyze(lo)]
         hl_sum = np.zeros(de.NUM_LIT_SYMS, np.int64)
         hd_sum = np.zeros(de.NUM_DIST_SYMS, np.int64)
         for *_, hist_lit, hist_dist in staged:
@@ -145,8 +213,9 @@ def _compress_members(arr, level, member_size, dev, final_flags=None,
         shared = (s_lit, s_dist, de.build_dynamic_header(s_lit, s_dist))
         packed_iter = (pack(st, shared) for st in staged)
     else:
-        packed_iter = (pack(analyze(lo), None) for lo in range(0, m, chunk))
+        packed_iter = (pack(st, None) for lo in range(0, m, chunk) for st in analyze(lo))
 
+    # device groups come in member order, so appending gathers by index
     parts: list = []
     crcs_all: list = []
     for b, cdata, cnv, d_data, kinds, pk in packed_iter:
@@ -199,20 +268,36 @@ def _encode_tb(split_rows: list, ncmds: list, stride: int) -> bytes | None:
 
 
 def sharded_gzip_compress(data, level: int = 6, *, member_size: int = de.SEGMENT_SIZE,
-                          mtime: int = 0, os: gz.OS | int = gz.OS.default(),
-                          index: bool = True,
-                          shared_tree: bool = False, device="cuda") -> bytes:
+                          mesh=None, mtime: int = 0, os: gz.OS | int = gz.OS.default(),
+                          index: bool = True, return_meta: bool = False,
+                          shared_tree: bool = False, config=None, device="cuda"):
     """Multi-member gzip archive, members compressed in parallel on
-    ``device``; byte-identical to the reference's
-    ``sharded_gzip_compress`` with the same arguments.  With ``index``
-    (the default) the first member's FEXTRA lists the member sizes and
-    split points so :func:`sharded_gzip_decompress` can decode all
-    members in parallel; other gzip readers ignore it."""
-    dev = de._resolve_device(device)
+    ``device``, or over ``mesh`` where one is given; byte-identical to the
+    reference's ``sharded_gzip_compress`` with the same arguments, for any
+    mesh.  With ``index`` (the default) the first member's FEXTRA lists
+    the member sizes and split points so :func:`sharded_gzip_decompress`
+    can decode all members in parallel; other gzip readers ignore it.
+
+    ``return_meta`` returns (archive, sizes, split_rows, ncmds), the
+    per-member inputs of :func:`_build_index` (what the multi-process
+    writer gathers).  A ``config`` (``utils.config.CodecConfig``,
+    validated first) supplies the level where ``level`` is 6, the member
+    size, ``shared_tree`` and ``write_index``, and its device where
+    ``device`` is left at "cuda"."""
+    if config is not None:
+        config.validate()
+        level = config.level if level == 6 else level
+        member_size = config.member_size or member_size
+        index = index and config.write_index
+        shared_tree = shared_tree or config.shared_tree
+        device = config.device if device == "cuda" else device
+    devs = _mesh_devices(mesh, device)
     arr = de._np_u8(data)
     if arr.size == 0:
-        return gz.compress(b"", level, device=device)
-    parts, n_valid, crcs = _compress_members(arr, level, member_size, dev,
+        empty = gz.compress(b"", level, device=devs[0])
+        return (empty, [len(empty)], [[(0, 0, 0)] * (N_SPLITS - 1)], [0]) \
+            if return_meta else empty
+    parts, n_valid, crcs = _compress_members(arr, level, member_size, devs,
                                              shared_tree=shared_tree)
     m = len(parts)
 
@@ -246,29 +331,33 @@ def sharded_gzip_compress(data, level: int = 6, *, member_size: int = de.SEGMENT
         out.append(bodies[i])
         out.append(int(crcs[i]).to_bytes(4, "little"))
         out.append(int(int(n_valid[i]) & 0xFFFFFFFF).to_bytes(4, "little"))
-    return b"".join(out)
+    archive = b"".join(out)
+    if return_meta:
+        return archive, sizes, split_rows, ncmds
+    return archive
 
 
 def sharded_zlib_compress(data, level: int = 6, *, member_size: int = de.SEGMENT_SIZE,
-                          device="cuda") -> bytes:
-    """One zlib stream from members compressed in parallel on ``device``;
-    byte-identical to the reference's ``sharded_zlib_compress`` with the
-    same arguments.  Members are raw blocks with no shared window, all
-    but the last with BFINAL 0 and each packed one followed by a sync
-    flush (an empty stored block) so the next starts on a byte; the
-    stream's Adler-32 is computed on ``device``."""
-    dev = de._resolve_device(device)
+                          mesh=None, device="cuda") -> bytes:
+    """One zlib stream from members compressed in parallel on ``device``,
+    or over ``mesh`` where one is given; byte-identical to the reference's
+    ``sharded_zlib_compress`` with the same arguments, for any mesh.
+    Members are raw blocks with no shared window, all but the last with
+    BFINAL 0 and each packed one followed by a sync flush (an empty
+    stored block) so the next starts on a byte; the stream's Adler-32 is
+    computed on the first device."""
+    devs = _mesh_devices(mesh, device)
     arr = de._np_u8(data)
     if arr.size == 0:
-        return zl.deflate(b"", level, device=device)
+        return zl.deflate(b"", level, device=devs[0])
     m = max(1, (arr.size + member_size - 1) // member_size)
     final_flags = np.zeros(m, bool)
     final_flags[-1] = True
-    parts, _, _ = _compress_members(arr, level, member_size, dev,
+    parts, _, _ = _compress_members(arr, level, member_size, devs,
                                     final_flags=final_flags, want_crc=False)
     # members tile the input in order, so the stream's Adler-32 is that
     # of the whole input
-    adler = checksum.adler32(arr, device=dev)
+    adler = checksum.adler32(arr, device=devs[0])
     w = bitstream.BitWriter()
     w.write_bytes(zl._header(level))
     for i, part in enumerate(parts):
@@ -546,3 +635,44 @@ def _decode_on_device(buf: np.ndarray, dev: torch.device) -> bytes:
                 raise de.MalformedError("member length or CRC-32 mismatch")
             results[i] = p[1]
     return b"".join(results)
+
+
+# ---------------------------------------------------------------------------
+# The fixed-Huffman device step over a mesh.
+# ---------------------------------------------------------------------------
+
+
+def compress_step_sharded(mesh, data, n_valid, hist_len, bfinal, *, level: int = 6,
+                          seg_len: int = 4096):
+    """One compression step over ``mesh``: the batch (arrays or tensors,
+    data uint8[B, HIST + seg_len], the rest int32[B]) split evenly over
+    the mesh's devices (B must divide, as a ``shard_map`` requires), each
+    device running ``pipeline.fixed_deflate_segments`` on its rows.
+
+    Returns (words uint32[B, out_words], sizes_all int32[ndev, B],
+    total_bits int32[]) on the first device, in the reference's layout:
+    ``sizes_all`` is its all-gathered totals under ``P(None, "dp")``, so
+    ``sizes_all[r, k * B / ndev + j]`` is the total bits of device r's
+    j-th row for every k; ``total_bits`` is the sum of all rows.  The
+    devices' steps are dispatched one after another from this thread, so
+    a larger mesh is no faster."""
+    devs = _mesh_devices(mesh, None)
+    nd = len(devs)
+    b = data.shape[0]
+    if b % nd:
+        raise ValueError(f"a batch of {b} rows does not split over {nd} devices")
+    per = b // nd
+    words, totals = [], []
+    for k, dev in enumerate(devs):
+        rows = slice(k * per, (k + 1) * per)
+        w, t = pipeline.fixed_deflate_segments(
+            *(torch.as_tensor(x[rows]).to(dev) for x in (data, n_valid, hist_len, bfinal)),
+            level=level, seg_len=seg_len)
+        words.append(w)
+        totals.append(t)
+    home = devs[0]
+    gathered = torch.stack([t.to(home) for t in totals])  # [ndev, per]
+    total_bits = gathered.sum(dtype=torch.int32)
+    # concatenated as int32 views: uint32 tensors support few operations
+    words = torch.cat([w.to(home).view(torch.int32) for w in words]).view(torch.uint32)
+    return words, gathered.repeat(1, nd), total_bits

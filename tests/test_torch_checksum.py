@@ -204,3 +204,15 @@ def test_combines_match_reference_and_zlib(split):
                                                          len(b))
     got = checksum.crc32_combine(zlib.crc32(a), zlib.crc32(b), len(b))
     assert got == zlib.crc32(x) == ref.crc32_combine(zlib.crc32(a), zlib.crc32(b), len(b))
+
+
+def test_crc32_batch_matches_reference():
+    """Host rows with junk past each length, as the reference's
+    crc32_batch takes them."""
+    rng = np.random.default_rng(3)
+    rows = rng.integers(1, 256, (7, 700), dtype=np.uint8)
+    lengths = np.array([0, 1, 255, 256, 257, 699, 700], np.int32)
+    got = checksum.crc32_batch(rows, lengths, device="cpu")
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, ref.crc32_batch(rows, lengths))
+    assert got.tolist() == [zlib.crc32(rows[i, :n].tobytes()) for i, n in enumerate(lengths)]

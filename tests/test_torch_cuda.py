@@ -24,7 +24,10 @@ and ``sharded_zlib_compress``) equal to the CPU port, and Adler-32 on the
 card equal to ``zlib.adler32``.  The streaming encoders on the card
 (``gz.Def`` on the segment engine, ``zl.Def`` and ``gz.Def`` on the queue
 engine, ``match_commands_batch`` on ragged chunk rows) equal to the same
-calls on the CPU.
+calls on the CPU.  LZO compression (its mark-path and histogram
+launches counted), the fixed-Huffman step (B = 2, 8 and 3, with history;
+each row decoded by zlib), ``compress_step_sharded`` on ``make_mesh()`` and
+on one card twice, and a mesh archive on both, equal to the CPU port.
 """
 
 import functools
@@ -36,9 +39,9 @@ import numpy as np
 import pytest
 import torch
 
-from decompress_tpu_torch import _build, de, gz, zl
-from decompress_tpu_torch.ops import (checksum, cost_cu, crc_cu, hist_cu, inflate,
-                                      inflate_cu, pack_cu, parse_cu)
+from decompress_tpu_torch import _build, de, gz, lzo, parallel, zl
+from decompress_tpu_torch.ops import (bitpack, checksum, cost_cu, crc_cu, hist_cu, inflate,
+                                      inflate_cu, lz77, pack_cu, parse_cu, pipeline)
 from decompress_tpu_torch.parallel import sharded
 
 pytestmark = pytest.mark.cuda
@@ -314,7 +317,8 @@ def test_decode_kernel_fixed_member(dev):
 def test_crc_kernel(dev, width):
     """crc32_rows on the card: equal to its plain version on zero-tailed
     rows and to zlib with init values, nonzero junk past each length and
-    rows misaligned by a strided view; one launch a call."""
+    rows misaligned by a strided view; one launch a call; crc32_batch of
+    host rows with junk past each length."""
     rng = np.random.default_rng(width)
     lengths = np.array([0, 1, 15, 16, 17, 255, 256, 257, width - 3, width])
     data = np.zeros((lengths.size, width + 7), np.uint8)
@@ -338,6 +342,8 @@ def test_crc_kernel(dev, width):
         assert crc_cu.crc32_rows(shifted, d_len, d_init).tolist() == want
     crcs = checksum.crc32_batch_device(rows, lengths)
     assert crcs.tolist() == [zlib.crc32(data[i, :n].tobytes()) for i, n in enumerate(lengths)]
+    host = checksum.crc32_batch(junk[:, :width], lengths)  # host rows, junk past lengths
+    assert host.tolist() == crcs.tolist()
 
 
 def test_sharded_round_trip_on_card(dev):
@@ -416,3 +422,62 @@ def test_match_commands_batch_on_card_matches_cpu(dev):
     want = de.match_commands_batch(chunks, hists, 6, seg=16384, device="cpu")
     for g, w in zip(got, want, strict=True):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("n", [20_000, 300_000])
+def test_lzo_on_card_matches_cpu(dev, n):
+    base = b"".join(p.read_bytes() for p in sorted(CORPUS.iterdir()))[:n]
+    _build.LAUNCHES.clear()
+    got = lzo.compress(base, level=6, device="cuda")
+    assert _build.LAUNCHES["mark_path"] > 0 and _build.LAUNCHES["histograms"] > 0
+    assert got == lzo.compress(base, level=6, device="cpu")
+    assert lzo.uncompress(got) == base
+
+
+def _fixed_rows(b, seg, hist_len):
+    raw = np.frombuffer((CORPUS / "book1").read_bytes(), np.uint8)
+    data = np.zeros((b, lz77.HIST + seg), np.uint8)
+    for i in range(b):
+        st = lz77.HIST + 5000 * i
+        data[i, lz77.HIST - hist_len:] = raw[st - hist_len:st + seg]
+    nv = np.full(b, seg, np.int32)
+    nv[-1] = seg - 1000
+    data[-1, lz77.HIST + seg - 1000:] = 0
+    hl = np.full(b, hist_len, np.int32)
+    bf = np.ones(b, np.int32)
+    return data, nv, hl, bf
+
+
+@pytest.mark.parametrize("b,seg,hist_len", [(2, 4096, 0), (8, 1 << 17, 0), (3, 1024, 700)])
+def test_fixed_step_on_card_matches_cpu(dev, b, seg, hist_len):
+    arrs = _fixed_rows(b, seg, hist_len)
+    _build.LAUNCHES.clear()
+    words, bits = pipeline.fixed_deflate_segments(
+        *(torch.from_numpy(a).to(dev) for a in arrs), seg_len=seg)
+    assert _build.LAUNCHES["mark_path"] > 0 and _build.LAUNCHES["histograms"] > 0
+    want_w, want_t = pipeline.fixed_deflate_segments(
+        *(torch.from_numpy(a) for a in arrs), seg_len=seg)
+    assert words.dtype == torch.uint32 and bits.dtype == torch.int32
+    assert torch.equal(words.cpu(), want_w) and torch.equal(bits.cpu(), want_t)
+    data, nv, hl, _ = arrs
+    for i in range(b):
+        body = bitpack.words_to_bytes(words[i], int(bits[i]))
+        d = zlib.decompressobj(-15, zdict=data[i, lz77.HIST - hl[i]:lz77.HIST].tobytes())
+        assert d.decompress(body) == data[i, lz77.HIST:lz77.HIST + nv[i]].tobytes()
+
+
+def test_compress_step_and_mesh_archive_on_card_match_cpu(dev):
+    arrs = _fixed_rows(8, 4096, 0)
+    want = parallel.compress_step_sharded(parallel.make_mesh(2, device="cpu"), *arrs,
+                                          seg_len=4096)
+    for mesh in (parallel.make_mesh(), (dev, dev)):
+        got = parallel.compress_step_sharded(mesh, *arrs, seg_len=4096)
+        want_m = parallel.compress_step_sharded(parallel.make_mesh(len(mesh), device="cpu"),
+                                                *arrs, seg_len=4096)
+        for g, w in zip(got, want_m):
+            assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+        assert int(got[2]) == int(want[2])
+    x = (CORPUS / "book1").read_bytes()[:300_000]
+    want_a = sharded.sharded_gzip_compress(x, member_size=16384, device="cpu")
+    for mesh in (parallel.make_mesh(), (dev, dev)):
+        assert sharded.sharded_gzip_compress(x, member_size=16384, mesh=mesh) == want_a

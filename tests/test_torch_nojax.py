@@ -2,9 +2,12 @@
 ``decompress_tpu`` made unimportable, importing ``decompress_tpu_torch``,
 compressing 10 KB on the CPU at levels 4 and 6 (round B), a sharded
 archive's round trip, zlib framing (one-shot and sharded), the host
-decode through the native library, Adler-32, and the streaming codecs
+decode through the native library, Adler-32, the streaming codecs
 (``streaming``, ``lz``, the streaming ``zl`` / ``gz`` classes, both
-engines) still work (the machine with the card has no JAX);
+engines), LZO, the fixed-Huffman step (``ops.pipeline``) alone and over a
+mesh, a mesh archive, the single-process multi-process writer
+(``parallel.multihost``), ``utils`` (``CodecConfig``, profiling) and the
+CLI still work (the machine with the card has no JAX);
 and no source file of the port, nor ``chip_smoke.py``, has an import line
 of the reference package."""
 
@@ -16,18 +19,19 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 _SCRIPT = """
-import gzip, sys, zlib
+import gzip, os, sys, tempfile, zlib
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["jaxlib"] = None
 sys.modules["decompress_tpu"] = None  # nor the reference package
 import torch
 torch.set_num_threads(1)  # beside other test workers, more threads only wait
 import decompress_tpu_torch
-from decompress_tpu_torch import _build, de, gz, lz, native, streaming, zl
+from decompress_tpu_torch import _build, cli, de, gz, lz, lzo, native, streaming, zl
 from decompress_tpu_torch.ops import (bitpack, checksum, codes, cost_cu, crc_cu,
                                       hist_cu, inflate, inflate_cu, lz77,
-                                      pack_cu, parse_cu)
-from decompress_tpu_torch.parallel import sharded
+                                      pack_cu, parse_cu, pipeline)
+from decompress_tpu_torch.parallel import multihost, sharded
+from decompress_tpu_torch.utils import config, profiling
 x = open("tests/corpus/paper1", "rb").read()[:10_000]
 out = gz.compress(x, level=4, segment_size=4096, device="cpu")
 assert gzip.decompress(out) == x
@@ -65,6 +69,29 @@ assert b"".join(parts) == x
 q = lz.Queue(1 << 14)
 lz.compress_into(q, x[:3000])
 assert de.reconstruct(q.as_array().tolist()) == x[:3000]
+c = lzo.compress(x, device="cpu")
+assert lzo.uncompress(c) == x == lzo.uncompress_with_buffer(c)
+rows = torch.zeros((2, lz77.HIST + 1024), dtype=torch.uint8)
+rows[:, lz77.HIST:] = torch.frombuffer(bytearray(x[:2048]), dtype=torch.uint8).view(2, 1024)
+nv, zero, one = (torch.full((2,), v, dtype=torch.int32) for v in (1024, 0, 1))
+with profiling.annotate("fixed step"):
+    words, bits = pipeline.fixed_deflate_segments(rows, nv, zero, one, seg_len=1024)
+for i in range(2):
+    assert zlib.decompress(bitpack.words_to_bytes(words[i], int(bits[i])), -15) == \
+        x[1024 * i:1024 * (i + 1)]
+mesh = sharded.make_mesh(2, device="cpu")
+w2, sizes, total = sharded.compress_step_sharded(mesh, rows, nv, zero, one, seg_len=1024)
+assert torch.equal(w2, words) and int(total) == int(bits.sum())
+assert sharded.sharded_gzip_compress(x, member_size=4096, mesh=mesh) == arch
+assert multihost.sharded_gzip_compress_multihost(x, member_size=4096, device="cpu") == arch
+cfg = config.CodecConfig(segment_size=4096, device="cpu").validate()
+assert de.deflate(x, config=cfg) == de.deflate(x, segment_size=4096, device="cpu")
+assert decompress_tpu_torch.rfc1951 is de
+with tempfile.TemporaryDirectory() as tmp:
+    src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+    open(src, "wb").write(x)
+    assert cli.main(["-f", "gzip", "--device", "cpu", src, dst]) == 0
+    assert gzip.decompress(open(dst, "rb").read()) == x
 assert not any(m.split(".")[0] in ("jax", "decompress_tpu") for m in sys.modules
                if sys.modules[m] is not None)
 print("ok", len(out))
@@ -83,7 +110,9 @@ _REFERENCE_IMPORT = re.compile(r"^\s*(import|from)\s+decompress_tpu(\.|\s|$)", r
 
 def test_no_reference_import_lines():
     files = sorted((ROOT / "decompress_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    names = {str(p.relative_to(ROOT / "decompress_tpu_torch")) for p in files[:-1]}
+    assert {"lzo.py", "cli.py", "ops/pipeline.py", "parallel/multihost.py",
+            "utils/config.py", "utils/profiling.py"} <= names
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if _REFERENCE_IMPORT.search(p.read_text())]
     assert offenders == []

@@ -347,7 +347,7 @@ def test_sharded_zlib_empty_and_member_options_match_reference():
     assert zlib.decompress(sharded.sharded_zlib_compress(b"", 1, device="cpu")) == b""
     arr = np.frombuffer(ZLIB_PAYLOAD, np.uint8)
     flags = np.array([False, True, False, True])
-    parts, n_valid, crcs = sharded._compress_members(arr, 4, 16384, torch.device("cpu"),
+    parts, n_valid, crcs = sharded._compress_members(arr, 4, 16384, (torch.device("cpu"),),
                                                      final_flags=flags, want_crc=False)
     assert crcs is None and n_valid.tolist() == [16384, 16384, 16384, 5000]
     assert [p[0] for p in parts] == ["packed", "stored", "packed", "packed"]
