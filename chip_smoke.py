@@ -27,15 +27,22 @@ Phases, each raising at its first failure:
      each path must be launched in that path's run;
   5. where the time goes: stage walls of three warm level-6 runs (host
      clock, a synchronize around each stage) and one profiled run (device
-     busy share, device time by kernel, the port's kernels' share);
+     busy share, device time by kernel, the port's kernels' share, the
+     host-blocking CUDA calls by kind); then the schedule: warm level-6
+     walls at de.PIPELINE_DEPTH 1 and 4, interleaved, WALL_RUNS each
+     (medians and spreads, each output against the reference's digest),
+     and a profiled run at depth 1;
   6. the sharded round trip: sharded_gzip_compress of the corpus at level 6
      (65 members of 130,560 bytes, splits every 8192 bits) checked against
      the reference's size and sha256 and by gzip.decompress, then
-     sharded_gzip_decompress of it on the card, which must return the
-     corpus with the decode and CRC kernels launched and no serial
-     fallback; cold and warm walls of both halves, the decode's stage
-     split, and the CRC stage: its calls a round trip (10), each running at
-     most 2 device kernels, and its wall in each half;
+     sharded_gzip_decompress of it on the card on both expand routes (the
+     default host expansion and expand="device"), each of which must
+     return the corpus with the decode kernel launched (and the CRC kernel
+     on "device") and no serial fallback; cold and warm walls of both
+     halves (the writer on its windowed chunk schedule), the two decode
+     routes' warm walls interleaved, the decode's stage split on each
+     route, and the CRC stage: its calls a round trip (10), each running
+     at most 2 device kernels, and its wall in each half;
   7. the decode and CRC kernels against their plain versions on the card:
      the archive's split rows, one member's rows alone, a fixed-Huffman
      member, a member with one flipped bit (both must reject its final
@@ -82,8 +89,8 @@ Phases, each raising at its first failure:
      (c) parallel.compress_step_sharded on make_mesh() and on the card
      twice, equal to (b) in words, sizes and total bits; (d) the level-6
      sharded archive on both meshes (the single-process digest) and with
-     shared_tree, each decoded by gzip and on the card with no serial
-     fallback; (e) two worker processes on the card (gloo, a file://
+     shared_tree, each decoded by gzip and on the card on both expand
+     routes with no serial fallback; (e) two worker processes on the card (gloo, a file://
      rendezvous in a temporary directory) each writing
      sharded_gzip_compress_multihost of the corpus, both the
      single-process archive, with each rank's walls; (f) the CLI in
@@ -92,7 +99,7 @@ Phases, each raising at its first failure:
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the path that uses them (the default
 level-6 gz.compress for the compression kernels, the sharded round trip
-for decode and CRC), errors, times and bounds (the CRC's: the bytes up to
+decoded with expand="device" for decode and CRC), errors, times and bounds (the CRC's: the bytes up to
 each length read once); "ms" is a CUDA-event loop
 of launches, "device_ms" and "device_cold_ms" the kernels' own device
 time from a profile, L2-warm and with the L2 flushed before each launch.
@@ -106,6 +113,7 @@ import gzip
 import hashlib
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -149,6 +157,11 @@ TIMING_ITERS = 20
 #: bytes overwritten between launches for the cold-L2 device times (the
 #: H100's L2 holds 50 MB)
 FLUSH_BYTES = 64 << 20
+#: CUDA runtime calls that hold the host until the device catches up
+BLOCKING_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+                  "cudaMemcpy")
+#: interleaved warm runs of each side of a wall comparison
+WALL_RUNS = 5
 #: the CUDA kernels of csrc/ (device-side names in a profile)
 PORT_KERNELS = ("chunk_exit_kernel", "chunk_hop_kernel", "chunk_refine_kernel",
                 "hist_kernel", "litbits_tally_kernel", "litbits_scan_kernel", "gain_kernel",
@@ -550,6 +563,41 @@ def stage_split(torch, fn, card, title: str = "level-6 gz.compress",
     profile_run(torch, fn, card, title)
 
 
+def spread(walls: list) -> str:
+    return (f"median {statistics.median(walls):.4f} s (min {min(walls):.4f}, max "
+            f"{max(walls):.4f}, {len(walls)} runs)")
+
+
+def depth_walls(torch, data: bytes, card) -> None:
+    """Phase 5, the schedule: warm level-6 gz.compress walls at
+    de.PIPELINE_DEPTH 1 and 4, interleaved (ABBA), each output checked
+    against the reference's digest; then one profiled run at depth 1."""
+    from decompress_tpu_torch import de, gz
+
+    def run():
+        return gz.compress(data, device="cuda")
+
+    saved = de.PIPELINE_DEPTH
+    walls = {1: [], 4: []}
+    try:
+        for r in range(WALL_RUNS):
+            for depth in ((1, 4) if r % 2 == 0 else (4, 1)):
+                de.PIPELINE_DEPTH = depth
+                out, wall = timed_call(torch, run)
+                expect(f"level-6 gz.compress at PIPELINE_DEPTH {depth}", out, EXPECT[None])
+                walls[depth].append(wall)
+        de.PIPELINE_DEPTH = 1
+        profile_run(torch, run, card, "level-6 gz.compress at PIPELINE_DEPTH 1")
+    finally:
+        de.PIPELINE_DEPTH = saved
+    for depth, w in walls.items():
+        print(f"schedule: level-6 gz.compress warm wall at PIPELINE_DEPTH {depth}: "
+              f"{spread(w)} [{card}]", flush=True)
+    print(f"schedule: depth 4 / depth 1 median wall "
+          f"{statistics.median(walls[4]) / statistics.median(walls[1]):.4f} [{card}]",
+          flush=True)
+
+
 def profile_run(torch, fn, card, title: str) -> None:
     """One profiled run of fn(): its wall, the device's busy share over the
     kernels' span, and device time by kernel (the top 20 and the port's)."""
@@ -569,6 +617,14 @@ def profile_run(torch, fn, card, title: str) -> None:
     print(f"{title}: profile: wall {1e3 * wall:.1f} ms, {len(kernels)} device kernels, busy "
           f"{busy_us / 1e3:.1f} ms over a {span_us / 1e3:.1f} ms span "
           f"({100 * busy_us / max(span_us, 1):.1f}% busy) [{card}]", flush=True)
+    runtime = collections.Counter(e.name for e in prof.events() if e.name.startswith("cuda"))
+    blocking = {k: runtime[k] for k in BLOCKING_CALLS}
+    held = sum(e.time_range.elapsed_us() for e in prof.events() if e.name in BLOCKING_CALLS)
+    print(f"{title}: profile: host-blocking CUDA calls in the run {blocking}, the host held "
+          f"{held / 1e3:.1f} ms in them (the harness's cudaDeviceSynchronize at the run's "
+          f"end included), beside "
+          f"{runtime['cudaLaunchKernel']} cudaLaunchKernel, {runtime['cudaMemcpyAsync']} "
+          f"cudaMemcpyAsync, {runtime['cudaHostAlloc']} cudaHostAlloc", flush=True)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
@@ -618,7 +674,8 @@ def sharded_path(torch, data: bytes, wrappers, card):
               "compaction (slot_counts_bits)": (inflate, "slot_counts_bits"),
               "compaction (compact_commands)": (inflate, "compact_commands"),
               "expansion (expand_commands)": (inflate, "expand_commands"),
-              "CRC (crc32_batch_device)": (checksum, "crc32_batch_device")}
+              "CRC (crc32_batch_device)": (checksum, "crc32_batch_device"),
+              "host expansion and CRC (_expand_native)": (sharded, "_expand_native")}
     spent = dict.fromkeys(stages, 0.0)
     originals = {label: getattr(mod, attr) for label, (mod, attr) in stages.items()}
 
@@ -629,44 +686,67 @@ def sharded_path(torch, data: bytes, wrappers, card):
             return out
         return wrapper
 
-    def decompress():
-        return sharded.sharded_gzip_decompress(archive, device="cuda")
+    def decompress(expand):
+        return sharded.sharded_gzip_decompress(archive, expand=expand, device="cuda")
 
-    sharded.serial_fallbacks.clear()
-    out, cold_d = timed(decompress)
-    _build.LAUNCHES.clear()
-    out, warm_d = timed(decompress)
-    launches_d = {name: _build.LAUNCHES[name] for name in wrappers}
-    print(f"sharded: sharded_gzip_decompress -> {len(out)} bytes; launches "
-          f"{launches_d}; serial fallbacks {dict(sharded.serial_fallbacks)}", flush=True)
-    if out != data:
-        raise AssertionError("sharded_gzip_decompress does not restore the input")
-    if sharded.serial_fallbacks:
-        raise AssertionError(f"serial route taken: {dict(sharded.serial_fallbacks)}")
-    missing = [n for n in ("decode", "crc32_rows") if launches_d[n] <= 0]
-    missing += [n for n, c in launches_c.items() if c <= 0 and n != "decode"]
+    def route(expand):
+        """One decode route, cold, then warm with every launch count set
+        to 0 just before it: (cold s, warm s, launches)."""
+        sharded.serial_fallbacks.clear()
+        out, cold = timed(lambda: decompress(expand))
+        _build.LAUNCHES.clear()
+        out, warm = timed(lambda: decompress(expand))
+        launches = {name: _build.LAUNCHES[name] for name in wrappers}
+        print(f"sharded: sharded_gzip_decompress(expand={expand!r}) -> {len(out)} bytes; "
+              f"launches {launches}; serial fallbacks {dict(sharded.serial_fallbacks)}",
+              flush=True)
+        if out != data:
+            raise AssertionError(f"sharded_gzip_decompress(expand={expand!r}) does not "
+                                 "restore the input")
+        if sharded.serial_fallbacks:
+            raise AssertionError(f"serial route taken: {dict(sharded.serial_fallbacks)}")
+        need = ("decode", "crc32_rows") if expand == "device" else ("decode",)
+        missing = [n for n in need if launches[n] <= 0]
+        if missing:
+            raise AssertionError(f"decode with expand={expand!r} did not launch {missing}")
+        return cold, warm, launches
+
+    cold_d, warm_d, launches_d = route("device")
+    cold_n, warm_n, _ = route("auto")
+    missing = [n for n, c in launches_c.items() if c <= 0 and n != "decode"]
     if missing:
-        raise AssertionError(f"sharded round trip did not launch {missing}")
-    print(f"sharded wall: compress cold {cold_c:.4f} s, warm {warm_c:.4f} s = "
-          f"{len(data) / warm_c / 1e6:.2f} MB/s; decompress cold {cold_d:.4f} s, "
-          f"warm {warm_d:.4f} s = {len(data) / warm_d / 1e6:.2f} MB/s [{card}]",
-          flush=True)
+        raise AssertionError(f"sharded compression did not launch {missing}")
+    print(f"sharded wall: compress (windowed chunk schedule) cold {cold_c:.4f} s, warm "
+          f"{warm_c:.4f} s = {len(data) / warm_c / 1e6:.2f} MB/s; decompress "
+          f"expand='device' cold {cold_d:.4f} s, warm {warm_d:.4f} s = "
+          f"{len(data) / warm_d / 1e6:.2f} MB/s; expand='auto' (host expansion) cold "
+          f"{cold_n:.4f} s, warm {warm_n:.4f} s = {len(data) / warm_n / 1e6:.2f} MB/s "
+          f"[{card}]", flush=True)
+    walls = {"device": [], "auto": []}
+    for r in range(WALL_RUNS):
+        for expand in (("device", "auto") if r % 2 == 0 else ("auto", "device")):
+            walls[expand].append(timed(lambda: decompress(expand))[1])
+    for expand, w in walls.items():
+        print(f"sharded decode warm wall, expand={expand!r}, interleaved: {spread(w)} "
+              f"[{card}]", flush=True)
 
     for label, (mod, attr) in stages.items():
         setattr(mod, attr, stage_timer(label, originals[label]))
     try:
-        for r in range(3):
-            for label in stages:
-                spent[label] = 0.0
-            _, wall = timed(decompress)
-            parts = ", ".join(f"{label} {1e3 * t:.1f} ms" for label, t in spent.items())
-            print(f"decode stages run {r + 1}: wall {1e3 * wall:.1f} ms; {parts} [{card}]",
-                  flush=True)
+        for expand in ("device", "auto"):
+            for r in range(3):
+                for label in stages:
+                    spent[label] = 0.0
+                _, wall = timed(lambda: decompress(expand))
+                parts = ", ".join(f"{label} {1e3 * t:.1f} ms" for label, t in spent.items()
+                                  if t)
+                print(f"decode stages, expand={expand!r}, run {r + 1}: wall "
+                      f"{1e3 * wall:.1f} ms; {parts} [{card}]", flush=True)
     finally:
         for label, (mod, attr) in stages.items():
             setattr(mod, attr, originals[label])
     launches = {n: launches_c[n] + launches_d[n] for n in wrappers}
-    crc_stage(torch, compress, decompress, launches["crc32_rows"], card)
+    crc_stage(torch, compress, lambda: decompress("device"), launches["crc32_rows"], card)
     return archive, launches
 
 
@@ -679,7 +759,7 @@ def crc_stage(torch, compress, decompress, launches: int, card) -> None:
 
     from decompress_tpu_torch.ops import checksum
 
-    crc_batch = checksum.crc32_batch_device
+    crc_batch = checksum.crc32_rows_device  # crc32_batch_device calls it too
     calls = {"compress": [], "decompress": []}
     half = ["compress"]
 
@@ -687,16 +767,17 @@ def crc_stage(torch, compress, decompress, launches: int, card) -> None:
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = crc_batch(data_2d, lengths)
+        torch.cuda.synchronize()
         calls[half[0]].append((data_2d, lengths, time.perf_counter() - t))
         return out
 
-    checksum.crc32_batch_device = recorded
+    checksum.crc32_rows_device = recorded
     try:
         compress()
         half[0] = "decompress"
         decompress()
     finally:
-        checksum.crc32_batch_device = crc_batch
+        checksum.crc32_rows_device = crc_batch
     kernels = []
     for data_2d, lengths, _ in calls["compress"] + calls["decompress"]:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1253,18 +1334,21 @@ def mesh_path(torch, dev, data: bytes, card) -> None:
             raise AssertionError(f"mesh archive on {label} did not launch {launches}")
         if gzip.decompress(archive) != data:
             raise AssertionError(f"gzip.decompress does not restore the archive on {label}")
-        sharded.serial_fallbacks.clear()
-        _build.LAUNCHES.clear()
-        back, d_wall = timed_call(
-            torch, lambda: sharded.sharded_gzip_decompress(archive, device="cuda"))
-        d_launches = {k: _build.LAUNCHES[k] for k in ("decode", "crc32_rows")}
-        if back != data or sharded.serial_fallbacks or min(d_launches.values()) <= 0:
-            raise AssertionError(f"sharded_gzip_decompress of the archive on {label}: "
-                                 f"serial fallbacks {dict(sharded.serial_fallbacks)}, "
-                                 f"launches {d_launches}")
+        decoded = []
+        for expand, need in (("auto", ("decode",)), ("device", ("decode", "crc32_rows"))):
+            sharded.serial_fallbacks.clear()
+            _build.LAUNCHES.clear()
+            back, d_wall = timed_call(torch, lambda: sharded.sharded_gzip_decompress(
+                archive, expand=expand, device="cuda"))
+            d_launches = {k: _build.LAUNCHES[k] for k in ("decode", "crc32_rows")}
+            if back != data or sharded.serial_fallbacks or min(d_launches[k] for k in need) <= 0:
+                raise AssertionError(f"sharded_gzip_decompress(expand={expand!r}) of the "
+                                     f"archive on {label}: serial fallbacks "
+                                     f"{dict(sharded.serial_fallbacks)}, launches {d_launches}")
+            decoded.append(f"expand={expand!r} {d_wall:.4f} s, launches {d_launches}")
         print(f"mesh: {label}: launches {launches}; compress wall cold {cold:.4f} s, warm "
-              f"{warm:.4f} s; card decode {d_wall:.4f} s, launches {d_launches}, no serial "
-              f"fallback [{card}]", flush=True)
+              f"{warm:.4f} s; card decode {'; '.join(decoded)}, no serial fallback "
+              f"[{card}]", flush=True)
 
 
 def multiprocess_path(card) -> None:
@@ -1362,6 +1446,7 @@ def main() -> int:
     from decompress_tpu_torch import gz
 
     stage_split(torch, lambda: gz.compress(data, device="cuda"), card)
+    depth_walls(torch, data, card)
 
     # ---- 6. the sharded round trip ----
     archive, sharded_launches = sharded_path(

@@ -2,12 +2,15 @@
 
 Counterpart of ``decompress_tpu/de.py: deflate`` for levels 0-12 and the
 ``rle``/``huffman_only``/``fixed`` strategies.  The pipeline is the
-reference's, batch by batch in order: device LZ77 analysis of up to
-``MAX_DEVICE_BATCH`` segments of ``SEGMENT_SIZE`` bytes, each with its
-32 KiB history, with the cost-aware round B at levels 5-12
-(``ops/lz77.py``, ``ops/cost_cu.py``); host block planning and Huffman tables
-(``plan_blocks``, copied from the reference); device slot build and bit pack
-(``ops/pack_cu.py``, ``ops/bitpack.py``); host assembly.  The output is
+reference's: device LZ77 analysis of up to ``MAX_DEVICE_BATCH`` segments
+of ``SEGMENT_SIZE`` bytes, each with its 32 KiB history, with the
+cost-aware round B at levels 5-12 (``ops/lz77.py``, ``ops/cost_cu.py``);
+host block planning and Huffman tables (``plan_blocks``, copied from the
+reference); device slot build and bit pack (``ops/pack_cu.py``,
+``ops/bitpack.py``); host assembly.  Round A of the next
+``PIPELINE_DEPTH`` batches is dispatched ahead of the host's work on the
+current one (:func:`_deflate_pipelined`), with every host read ordered by
+its own batch's event (``ops/transfer.py``).  The output is
 byte-identical to the reference's.
 
 ``device`` names where the arrays live: ``"cuda"`` (the default) runs
@@ -22,6 +25,7 @@ the table-driven :func:`_inflate_python` as its plain version.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -41,7 +45,7 @@ from .core.tables import (
     PRECODE_ORDER,
     WINDOW_SIZE,
 )
-from .ops import bitpack, lz77, pack_cu
+from .ops import bitpack, lz77, pack_cu, transfer
 
 # ---------------------------------------------------------------------------
 # Host half of the reference's de.py, copied (the port imports nothing of
@@ -615,14 +619,21 @@ def deflate(data, level: int | None = None, *, segment_size: int | None = None,
         return w.getvalue()
 
     seg = segment_size or SEGMENT_SIZE
+    nseg = (n + seg - 1) // seg
     head = None
     if dictionary:
         d = _np_u8(dictionary)
         head = d[-min(d.size, tables.WINDOW_SIZE):]
-    _deflate_batches(w, arr, level, seg, dev,
-                     force_block=None if dynamic else "fixed",
-                     window_bits=window_bits, dict_hist=head)
+    _deflate_pipelined(w, arr, nseg, level, seg, dev,
+                       force_block=None if dynamic else "fixed",
+                       window_bits=window_bits, dict_hist=head)
     return w.getvalue()
+
+
+#: batches whose round A is dispatched ahead of the host's planning stage
+#: (bounds device memory while letting the card's analysis overlap the
+#: host's tree building and transfers)
+PIPELINE_DEPTH = 4
 
 
 def _batch_rows(b: int) -> int:
@@ -693,25 +704,45 @@ def _assemble_batch_device(payload: torch.Tensor, head: torch.Tensor) -> torch.T
     return torch.cat([hists, payload], 1)
 
 
-def _deflate_batches(w, arr, level, seg, dev, force_block=None,
-                     window_bits=15, dict_hist=None):
-    """Analyze, repair, plan and pack every batch of segments, in order."""
-    nseg = (arr.size + seg - 1) // seg
-    for lo in range(0, nseg, MAX_DEVICE_BATCH):
-        hi = min(lo + MAX_DEVICE_BATCH, nseg)
+def _deflate_pipelined(w, arr, nseg, level, seg, dev, force_block=None,
+                       window_bits=15, dict_hist=None):
+    """Analyze, repair, plan and pack every batch of segments, with round A
+    of the next ``PIPELINE_DEPTH`` batches dispatched ahead: first round A
+    of the first batches, then for each batch in order, round A of the
+    next one, then the oldest in flight's finish (repairs, round B) and
+    its host half (:func:`_finish_batch`).  One stream carries it all, so
+    a batch's round B is queued behind the later batches' round A.  On
+    CUDA no host read blocks the stream: each waits on its own batch's
+    event (``ops/transfer``)."""
+    batches = [(lo, min(lo + MAX_DEVICE_BATCH, nseg))
+               for lo in range(0, nseg, MAX_DEVICE_BATCH)]
+
+    def dispatch(lo, hi):
+        keep = []  # the uploads' pinned sources, held until the batch is finished
         if seg >= lz77.HIST:
-            payload, head, n_valid, hist_len, b = _build_batch_payload(
+            payload, head, n_valid, hist_len, _ = _build_batch_payload(
                 arr, lo, hi, seg, dict_hist)
-            d_data = _assemble_batch_device(torch.from_numpy(payload).to(dev),
-                                            torch.from_numpy(head).to(dev))
+            d_data = _assemble_batch_device(transfer.upload(payload, dev, keep),
+                                            transfer.upload(head, dev, keep))
         else:
-            data, n_valid, hist_len, b = _build_batch(arr, lo, hi, seg,
-                                                      dict_hist)
-            d_data = torch.from_numpy(data).to(dev)
-        res = lz77.analyze2(d_data, torch.from_numpy(n_valid).to(dev),
-                            torch.from_numpy(hist_len).to(dev), level=level,
-                            seg_len=seg, window_bits=window_bits)
-        final_flags = np.array([s == nseg - 1 for s in range(lo, hi)], dtype=bool)
+            data, n_valid, hist_len, _ = _build_batch(arr, lo, hi, seg, dict_hist)
+            d_data = transfer.upload(data, dev, keep)
+        d_nv = transfer.upload(n_valid, dev, keep)
+        d_hl = transfer.upload(hist_len, dev, keep)
+        res = lz77.analyze2_start(d_data, d_nv, d_hl, level=level, seg_len=seg,
+                                  window_bits=window_bits)
+        return lo, hi, n_valid, d_data, d_nv, d_hl, res, keep
+
+    inflight = collections.deque(dispatch(*bt) for bt in batches[:PIPELINE_DEPTH])
+    ahead = iter(batches[len(inflight):])
+    for _ in batches:
+        lo, hi, n_valid, d_data, d_nv, d_hl, res, _keep = inflight.popleft()
+        nxt = next(ahead, None)
+        if nxt is not None:
+            inflight.append(dispatch(*nxt))
+        res = lz77.analyze2_finish(res, d_data, d_nv, d_hl, level=level,
+                                   seg_len=seg, window_bits=window_bits)
+        final_flags = np.arange(lo, hi) == nseg - 1
         _finish_batch(w, arr, lo, final_flags, seg, n_valid, d_data, res,
                       force_block)
 
@@ -719,21 +750,26 @@ def _deflate_batches(w, arr, level, seg, dev, force_block=None,
 def _finish_batch(w, arr, seg_lo, final_flags, seg, n_valid, d_data, res,
                   force_block=None):
     """Host half of one batch of ``len(final_flags)`` segments, the first
-    at ``arr[seg_lo * seg:]``: block planning, device pack, assembly."""
+    at ``arr[seg_lo * seg:]``: block planning, device pack, assembly.
+    The host reads (histograms, then the pack's totals and every word
+    column) go through events (``ops/transfer``)."""
     b = len(final_flags)
     b_pad = d_data.shape[0]
+    hist_lit, hist_dist = transfer.read(res, "hist_lit", "hist_dist")
     (hdr_vals, hdr_bits), tabs, kinds = plan_blocks(
-        res["hist_lit"].cpu().numpy()[:b], res["hist_dist"].cpu().numpy()[:b],
-        n_valid[:b], final_flags, pad_to=b_pad, force_block=force_block)
+        hist_lit[:b], hist_dist[:b], n_valid[:b], final_flags, pad_to=b_pad,
+        force_block=force_block)
     # any packed (non-stored) block beat the stored cost, so < ~9 bits/byte
     out_words = (9 * seg) // 32 + 2 * _HDR_PAD
     words, totals = pack_segments(res, d_data[:, lz77.HIST:], hdr_vals,
                                   hdr_bits, *tabs, out_words=out_words)
-    totals = totals.cpu().numpy()
-    # fetch only the words used by non-stored segments
+    # all columns: the copy need not wait for the totals to reach the host
+    totals, words = transfer.Fetch({"totals": totals, "words": words}).wait(
+        "totals", "words")
+    # keep only the words used by non-stored segments
     used = [int(totals[i]) for i in range(b) if kinds[i] != "stored"]
     cap = (max(used) + 31) // 32 + 1 if used else 0
-    words = words[:, :cap].cpu().numpy().astype("<u4")
+    words = words[:, :cap].astype("<u4")
     for i in range(b):
         if kinds[i] == "stored":
             start = (seg_lo + i) * seg
@@ -758,7 +794,7 @@ def pack_segments(res, sym_lit, hdr_vals, hdr_bits, lit_codes, lit_bits,
     dev = sym_lit.device
 
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return transfer.upload(a, dev)
 
     lit_cb = put((lit_codes.astype(np.int32) << 4) | lit_bits)
     dist_cb = put((dist_codes.astype(np.int32) << 4) | dist_bits)

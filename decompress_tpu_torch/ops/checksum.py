@@ -186,17 +186,22 @@ def back_aligned(data_2d: torch.Tensor, lengths) -> torch.Tensor:
     return torch.where(col >= 0, rolled, 0)
 
 
-def crc32_batch_device(data_2d: torch.Tensor, lengths) -> np.ndarray:
+def crc32_rows_device(data_2d: torch.Tensor, lengths) -> torch.Tensor:
     """CRC-32 of each row's first ``lengths[i]`` bytes of a uint8[M, L]
-    tensor (``lengths`` host integers or a tensor), on its device:
-    :func:`crc_cu.crc32_rows` and one copy to the host; uint32[M] numpy.
-    On the CPU (the plain version) bytes at and past ``lengths[i]`` MUST
-    be zero; decoded payloads and member batches satisfy this."""
+    tensor (``lengths`` host integers or a tensor), on its device, left
+    there: :func:`crc_cu.crc32_rows`, int64[M].  On the CPU (the plain
+    version) bytes at and past ``lengths[i]`` MUST be zero; decoded
+    payloads and member batches satisfy this."""
     if isinstance(lengths, torch.Tensor):
         lengths = lengths.to(data_2d.device, torch.int32)
     else:
         lengths = torch.from_numpy(np.asarray(lengths, np.int32)).to(data_2d.device)
-    return crc_cu.crc32_rows(data_2d, lengths).cpu().numpy().astype(np.uint32)
+    return crc_cu.crc32_rows(data_2d, lengths)
+
+
+def crc32_batch_device(data_2d: torch.Tensor, lengths) -> np.ndarray:
+    """:func:`crc32_rows_device` and one copy to the host; uint32[M] numpy."""
+    return crc32_rows_device(data_2d, lengths).cpu().numpy().astype(np.uint32)
 
 
 def crc32_batch(data_2d: np.ndarray, lengths, *, device="cuda") -> np.ndarray:

@@ -39,7 +39,7 @@ import torch
 
 from ..core import huffman, tables
 
-from . import cost_cu, hist_cu, parse_cu
+from . import cost_cu, hist_cu, parse_cu, transfer
 
 # Copies of the reference's byte-deciding constants (ops/lz77.py cannot be
 # imported without JAX); tests/test_torch_lz77.py holds them equal.
@@ -731,8 +731,20 @@ def _cost_tables_host(hist_lit, hist_dist):
     return lit_cost, dist_cost
 
 
+#: the entries of a result the host reads: exactness, then the histograms
+#: (round B's cost tables, the mining, the block plan)
+_HOST_KEYS = ("exact", "hist_lit", "hist_dist", "dist_counts")
+
+
+def _queued(res: dict) -> transfer.Queued:
+    """``res`` with the copies of its host-read entries queued right
+    behind the work that made them (see ``transfer``)."""
+    return transfer.Queued(res, [k for k in _HOST_KEYS if k in res])
+
+
 def _all_exact(res) -> bool:
-    return bool(res["exact"].all())
+    (exact,) = transfer.read(res, "exact")
+    return bool(exact.all())
 
 
 def _repair_greedy(res, data, n_valid, hist_len, *, level: int, seg_len: int,
@@ -747,12 +759,12 @@ def _repair_greedy(res, data, n_valid, hist_len, *, level: int, seg_len: int,
         cl = lz77_trim_candidates(data, res["is_match"], res["length"],
                                   res["dist"], cl, cd, n_valid,
                                   seg_len=seg_len, hist=hist)
-        res = lz77_reparse_greedy(data, cl, cd, n_valid, seg_len=seg_len,
-                                  hist=hist, lazy=lazy, two_round=two_round)
+        res = _queued(lz77_reparse_greedy(data, cl, cd, n_valid, seg_len=seg_len,
+                                          hist=hist, lazy=lazy, two_round=two_round))
         if _all_exact(res):
             return res
-    return lz77_analyze(data, n_valid, hist_len, level=level, seg_len=seg_len,
-                        force_exact=True, window_bits=window_bits, hist=hist)
+    return _queued(lz77_analyze(data, n_valid, hist_len, level=level, seg_len=seg_len,
+                                force_exact=True, window_bits=window_bits, hist=hist))
 
 
 def analyze2_finish(res, data, n_valid, hist_len, *, level: int,
@@ -787,20 +799,19 @@ def analyze2_finish(res, data, n_valid, hist_len, *, level: int,
         cl = trim(res, cl)
 
     dev = data.device
-    lit_cost, dist_cost = _cost_tables_host(res["hist_lit"].cpu().numpy(),
-                                            res["hist_dist"].cpu().numpy())
+    lit_cost, dist_cost = _cost_tables_host(*transfer.read(res, "hist_lit", "hist_dist"))
     hot = None
     if cfg.mine:
-        hot_np = _hot_dists_host(res["dist_counts"].cpu().numpy())
+        hot_np = _hot_dists_host(*transfer.read(res, "dist_counts"))
         if hot_np.any():  # all-zero rows: skip the hot lane
-            hot = torch.from_numpy(hot_np).to(dev)
-    lc = torch.from_numpy(lit_cost.astype(np.int32)).to(dev)
-    dc = torch.from_numpy(dist_cost.astype(np.int32)).to(dev)
+            hot = transfer.upload(hot_np, dev)
+    lc = transfer.upload(lit_cost.astype(np.int32), dev)
+    dc = transfer.upload(dist_cost.astype(np.int32), dev)
 
     def round_b(cand_length, cand_dist):
-        return lz77_parse_cost(data, cand_length, cand_dist, n_valid, lc, dc,
-                               hist_len, hot, seg_len=seg_len, hist=hist,
-                               lazy=cfg.lazy, window_bits=window_bits)
+        return _queued(lz77_parse_cost(data, cand_length, cand_dist, n_valid, lc, dc,
+                                       hist_len, hot, seg_len=seg_len, hist=hist,
+                                       lazy=cfg.lazy, window_bits=window_bits))
 
     for _ in range(_TRIM_RETRIES):
         res2 = round_b(cl, cd)
@@ -835,9 +846,11 @@ def analyze(data, n_valid, hist_len, *, level: int, seg_len: int,
 def analyze2_start(data, n_valid, hist_len, *, level: int, seg_len: int,
                    window_bits: int = 15, hist: int = HIST) -> dict[str, torch.Tensor]:
     """Round A with no host sync, so a caller can queue several batches'
-    round A on the card before the first :func:`analyze2_finish`."""
-    return lz77_analyze(data, n_valid, hist_len, level=level, seg_len=seg_len,
-                        window_bits=window_bits, hist=hist)
+    round A on the card before the first :func:`analyze2_finish`.  The
+    copies of what the host reads of it (exactness and histograms) are
+    queued right behind it, so that finish waits for this batch only."""
+    return _queued(lz77_analyze(data, n_valid, hist_len, level=level, seg_len=seg_len,
+                                window_bits=window_bits, hist=hist))
 
 
 def analyze2(data, n_valid, hist_len, *, level: int, seg_len: int,

@@ -5,17 +5,22 @@ Counterpart of ``decompress_tpu/parallel/sharded.py``.
 
 * :func:`sharded_gzip_compress` splits the input into independent
   members of ``member_size`` bytes (gzip allows concatenated members),
-  compresses them in batches of ``de.MAX_DEVICE_BATCH`` with no history
-  (members reset the window), records in each packed member the split
-  points of its symbol stream (every ``SPLIT_BITS`` bits), and writes
-  member sizes and splits into a standard FEXTRA index in the first
-  member's header (the TZ subfield, plus the compact TB subfield: one
-  byte per split).  Member CRC-32s are computed on the card.  The bytes
-  equal the reference's; any gzip reader decodes them.
+  compresses them in chunks of ``de.MAX_DEVICE_BATCH`` with no history
+  (members reset the window) in the reference's windowed order (chunk
+  i's analysis is dispatched before chunk i-1's packs are drained),
+  records in each packed member the split points of its symbol stream
+  (every ``SPLIT_BITS`` bits), and writes member sizes and splits into a
+  standard FEXTRA index in the first member's header (the TZ subfield,
+  plus the compact TB subfield: one byte per split).  Member CRC-32s are
+  computed on the card.  The bytes equal the reference's; any gzip
+  reader decodes them.
 * :func:`sharded_gzip_decompress` decodes such an archive on the card:
   every split row of every member at once (``ops/inflate_cu.decode``),
-  then the rows' commands are concatenated per member, expanded to bytes
-  and checked against each member's CRC-32, all on the card.
+  then the rows' commands are concatenated per member.  With the
+  reference's default ``expand="auto"`` the compacted stream is fetched
+  once and each member is expanded and CRC-checked on the host by the
+  native library; with ``expand="device"`` expansion and CRC-32 stay on
+  the card.
 
 Archives the card path does not cover, as the host reads them from the
 index and the block headers before anything goes to the card (no index,
@@ -28,8 +33,8 @@ malformed archive there raises the reference's ``gz.MalformedError`` or
 ``serial_fallbacks[reason]``, so a fallback is always visible; the
 port's own archives never take it.
 Once the card has decoded, a rejected row or a member whose CRC-32 or
-length does not match raises ``de.MalformedError``: the card's result
-is never replaced by a host decode.
+length does not match raises ``de.MalformedError`` on either ``expand``
+route: the result is never replaced by a serial host decode.
 
 * :func:`sharded_zlib_compress` writes one zlib stream from members
   compressed as the gzip members are, chained with BFINAL 0 and a sync
@@ -49,9 +54,6 @@ is never replaced by a host decode.
 * :func:`compress_step_sharded` runs the fixed-Huffman device step
   (``ops/pipeline.fixed_deflate_segments``) over a mesh with the
   reference's output layout (its all-gathered sizes and summed bits).
-
-The reference's ``expand`` choice of the decode (native host or device
-expansion) is not ported.
 """
 
 from __future__ import annotations
@@ -61,9 +63,9 @@ import collections
 import numpy as np
 import torch
 
-from .. import de, gz, zl
+from .. import de, gz, native, zl
 from ..core import bitstream, huffman
-from ..ops import checksum, inflate, inflate_cu, lz77, pipeline
+from ..ops import checksum, inflate, inflate_cu, lz77, pipeline, transfer
 from ..utils import profiling
 
 INDEX_ID = b"TZ"  # gzip FEXTRA subfield carrying member byte sizes
@@ -141,17 +143,25 @@ def _shard_rows(lo: int, m: int, d: int) -> list:
 
 def _compress_members(arr, level, member_size, mesh, final_flags=None,
                       want_crc=True, shared_tree=False):
-    """Member compression over ``mesh`` (a tuple of devices), in chunks of MAX_DEVICE_BATCH members per mesh device split as
-    :func:`_shard_rows` splits them; member i is a final block where
-    ``final_flags[i]`` (default: every member).
+    """Member compression over ``mesh`` (a tuple of devices), in chunks of
+    MAX_DEVICE_BATCH members per mesh device split as :func:`_shard_rows`
+    splits them; member i is a final block where ``final_flags[i]``
+    (default: every member).
 
     Returns (parts, n_valid, crcs) where parts[i] is either ("stored",
     payload_u8) or ("packed", packed_u8, total_bits, splits, ncmds),
     splits being the N_SPLITS-1 (bit_off, cmd_idx, out_off) triples
     (bit_off 0 = none), and crcs the members' CRC-32s computed on their
     devices (None without ``want_crc``), all by member index.
-    ``shared_tree`` analyzes every chunk first, sums the histograms,
-    builds one dynamic tree and packs every member with it."""
+
+    Chunks run in the reference's windowed order: chunk i's round A is
+    dispatched on every device group, then chunk i-1's packs are drained
+    (:func:`_drain`) while the devices work on i, then chunk i is
+    finished (repairs, round B) and its packs dispatched, each with its
+    members' CRC-32 and the copies of what the drain reads queued behind
+    it.  At most two chunks' device buffers are live.  ``shared_tree``
+    analyzes every chunk first, sums the histograms, builds one dynamic
+    tree and packs every member with it."""
     devs = tuple(mesh)
     # members are independent (window reset at boundaries), so they run
     # with no history prefix
@@ -169,65 +179,80 @@ def _compress_members(arr, level, member_size, mesh, final_flags=None,
         cdata[:b] = data[glo:glo + b]
         cnv = np.zeros(rows, np.int32)
         cnv[:b] = n_valid[glo:glo + b]
-        d_data = torch.from_numpy(cdata).to(dev)
-        d_nv = torch.from_numpy(cnv).to(dev)
+        keep = []  # the uploads' pinned sources, held until the group is packed
+        d_data = transfer.upload(cdata, dev, keep)
+        d_nv = transfer.upload(cnv, dev, keep)
         d_hl = torch.zeros(rows, dtype=torch.int32, device=dev)
         with profiling.annotate("lz77_analyze_dispatch"):
             res0 = lz77.analyze2_start(d_data, d_nv, d_hl, level=level,
                                        seg_len=member_size, hist=hist)
-        return glo, b, rows, cdata, cnv, d_data, d_nv, d_hl, res0
+        return glo, b, rows, cdata, cnv, d_data, d_nv, d_hl, res0, keep
+
+    def analyze(lo):  # round A of every device group of the chunk at lo
+        return [start(*g) for g in _shard_rows(lo, m, len(devs))]
 
     def finish(pend):
-        glo, b, rows, cdata, cnv, d_data, d_nv, d_hl, res0 = pend
+        glo, b, rows, cdata, cnv, d_data, d_nv, d_hl, res0, keep = pend
         res = lz77.analyze2_finish(res0, d_data, d_nv, d_hl, level=level,
                                    seg_len=member_size, hist=hist)
-        hist_lit = res["hist_lit"].cpu().numpy()[:b]
-        hist_dist = res["hist_dist"].cpu().numpy()[:b]
-        return glo, b, rows, cdata, cnv, d_data, res, hist_lit, hist_dist
-
-    def analyze(lo):
-        # every device's round A goes out before the first finish syncs
-        return [finish(p) for p in [start(*g) for g in _shard_rows(lo, m, len(devs))]]
+        hist_lit, hist_dist = transfer.read(res, "hist_lit", "hist_dist")
+        return glo, b, rows, cdata, cnv, d_data, d_nv, res, hist_lit[:b], hist_dist[:b], keep
 
     def pack(st, shared):
-        glo, b, rows, cdata, cnv, d_data, res, hist_lit, hist_dist = st
+        glo, b, rows, cdata, cnv, d_data, d_nv, res, hist_lit, hist_dist, keep = st
         (hdr_vals, hdr_bits), tabs, kinds = de.plan_blocks(
             hist_lit, hist_dist, cnv[:b], final_flags[glo:glo + b], pad_to=rows,
             shared_tree=shared or False)
         with profiling.annotate("bitpack"):
-            pk = de.pack_segments(res, d_data[:, hist:], hdr_vals, hdr_bits, *tabs,
-                                  out_words=out_words, n_splits=N_SPLITS,
-                                  split_stride=SPLIT_STRIDE, split_bits=SPLIT_BITS)
-        return b, cdata, cnv, d_data, kinds, pk
+            (words, totals), (sp_bits, sp_cmds, sp_outs, sp_n) = de.pack_segments(
+                res, d_data[:, hist:], hdr_vals, hdr_bits, *tabs,
+                out_words=out_words, n_splits=N_SPLITS, split_stride=SPLIT_STRIDE,
+                split_bits=SPLIT_BITS)
+        outs = {"totals": totals, "words": words, "sp_bits": sp_bits,
+                "sp_cmds": sp_cmds, "sp_outs": sp_outs, "sp_n": sp_n}
+        if want_crc:
+            outs["crcs"] = checksum.crc32_rows_device(d_data[:, hist:], d_nv)
+        return b, cdata, cnv, kinds, transfer.Fetch(outs), keep
 
+    parts: list = []
+    crcs: list = []
     if shared_tree:
-        staged = [st for lo in range(0, m, chunk) for st in analyze(lo)]
+        staged = [finish(p) for lo in range(0, m, chunk) for p in analyze(lo)]
         hl_sum = np.zeros(de.NUM_LIT_SYMS, np.int64)
         hd_sum = np.zeros(de.NUM_DIST_SYMS, np.int64)
-        for *_, hist_lit, hist_dist in staged:
+        for *_, hist_lit, hist_dist, _keep in staged:
             hl_sum[: hist_lit.shape[1]] += hist_lit.astype(np.int64).sum(axis=0)
             hd_sum[: hist_dist.shape[1]] += hist_dist.astype(np.int64).sum(axis=0)
         hl_sum[de.EOB] += m  # one EOB per member block
         s_lit = huffman.code_lengths_from_frequencies(hl_sum)
         s_dist = huffman.code_lengths_from_frequencies(hd_sum)
         shared = (s_lit, s_dist, de.build_dynamic_header(s_lit, s_dist))
-        packed_iter = (pack(st, shared) for st in staged)
+        for st in staged:
+            _drain([pack(st, shared)], hist, parts, crcs if want_crc else None)
     else:
-        packed_iter = (pack(st, None) for lo in range(0, m, chunk) for st in analyze(lo))
+        packed = None
+        for lo in range(0, m, chunk):
+            pend = analyze(lo)
+            if packed is not None:  # chunk i-1, while the devices analyze chunk i
+                _drain(packed, hist, parts, crcs if want_crc else None)
+            packed = [pack(st, None) for st in [finish(p) for p in pend]]
+        _drain(packed, hist, parts, crcs if want_crc else None)
+    return parts, n_valid, (np.array(crcs) if want_crc else None)
 
-    # device groups come in member order, so appending gathers by index
-    parts: list = []
-    crcs_all: list = []
-    for b, cdata, cnv, d_data, kinds, pk in packed_iter:
-        (words, totals), (sp_bits, sp_cmds, sp_outs, sp_n) = pk
-        totals = totals.cpu().numpy()[:b]
-        sp_bits, sp_cmds, sp_outs, sp_n = (
-            a.cpu().numpy()[:b] for a in (sp_bits, sp_cmds, sp_outs, sp_n))
+
+def _drain(packed: list, hist: int, parts: list, crcs: list | None) -> None:
+    """Host half of one chunk's packs, in member order (device groups come
+    in member order, so appending gathers by index): wait on each group's
+    event, then append its members to ``parts`` and, where ``crcs`` is a
+    list, their CRC-32s to it."""
+    for b, cdata, cnv, kinds, fetch, _keep in packed:
+        totals, words, sp_bits, sp_cmds, sp_outs, sp_n = (a[:b] for a in fetch.wait(
+            "totals", "words", "sp_bits", "sp_cmds", "sp_outs", "sp_n"))
+        if crcs is not None:
+            crcs.extend(fetch.wait("crcs")[0][:b].astype(np.uint32))
         used = [int(totals[i]) for i in range(b) if kinds[i] != "stored"]
         cap = (max(used) + 31) // 32 + 1 if used else 0
-        words = words[:b, :cap].cpu().numpy().astype("<u4")
-        if want_crc:
-            crcs_all.extend(checksum.crc32_batch_device(d_data[:, hist:], cnv)[:b])
+        words = words[:, :cap].astype("<u4")
         for i in range(b):
             if kinds[i] == "stored":
                 parts.append(("stored", cdata[i, hist : hist + cnv[i]]))
@@ -238,7 +263,6 @@ def _compress_members(arr, level, member_size, mesh, final_flags=None,
                 ]
                 parts.append(("packed", words[i].view(np.uint8), int(totals[i]),
                               splits, int(sp_n[i])))
-    return parts, n_valid, (np.array(crcs_all) if want_crc else None)
 
 
 def _encode_tb(split_rows: list, ncmds: list, stride: int) -> bytes | None:
@@ -575,26 +599,38 @@ def decode_plan(buf: np.ndarray):
     return metas, huff, rows, max(caps) + 4
 
 
-def sharded_gzip_decompress(archive, *, device="cuda") -> bytes:
+def sharded_gzip_decompress(archive, *, expand: str = "auto", device="cuda") -> bytes:
     """Member-parallel decode of an indexed archive on ``device``; stored
-    members resolve on the host, and every member expands on ``device``.
+    members resolve on the host.
+
+    Every split row of every member decodes on ``device`` and the rows'
+    commands are compacted there.  ``expand`` says where they become
+    bytes, with the reference's meaning and default: ``"device"`` expands
+    them and checks each member's CRC-32 on ``device``
+    (``inflate.expand_commands``, ``crc32_rows``); any other value,
+    ``"auto"`` included, fetches the compacted stream once and expands
+    each member on the host (``native.expand_cmds``), checked by length
+    and ``native.crc32``.  The reference's "auto" takes the host route
+    where its native library loads; the port's library builds or raises,
+    so "auto" always takes it.
 
     Archives the device path does not cover, as :func:`decode_plan`
     finds before anything is staged, take the serial host route, counted
     in ``serial_fallbacks``; malformed input there raises the reference's
     ``gz.MalformedError`` or ``de.MalformedError`` and message.
     A row the decode rejects, or a member whose CRC-32 or length does not
-    match, raises ``de.MalformedError``.  Where the reference falls back
-    to a serial decode on those, the port does not."""
+    match, raises ``de.MalformedError`` on either ``expand`` route.  Where
+    the reference falls back to a serial decode on those, the port does
+    not."""
     dev = de._resolve_device(device)
     buf = de._np_u8(archive)
     try:
-        return _decode_on_device(buf, dev)
+        return _decode_on_device(buf, dev, expand)
     except _Serial as e:
         return _serial(buf, str(e))
 
 
-def _decode_on_device(buf: np.ndarray, dev: torch.device) -> bytes:
+def _decode_on_device(buf: np.ndarray, dev: torch.device, expand: str) -> bytes:
     metas, huff, rows, max_cmds = decode_plan(buf)
     results: list = [None] * len(metas)
     if huff:
@@ -611,30 +647,67 @@ def _decode_on_device(buf: np.ndarray, dev: torch.device) -> bytes:
         # concatenation of its rows' spans
         ncmds = inflate.slot_counts_bits(cmds >> 26, st["stop"])
         row_starts = torch.cat([ncmds.new_zeros(1), torch.cumsum(ncmds, 0)])
-        flat = inflate.compact_commands(cmds, ncmds, lz77._ceil_pow2(int(row_starts[-1])))
+        total = int(row_starts[-1])
+        flat = inflate.compact_commands(cmds, ncmds, lz77._ceil_pow2(total))
         bounds = row_starts[st["row_ptr"].to(torch.int64)]
-        mstart, mtotal = bounds[:-1], torch.diff(bounds)
-        mc = lz77._ceil_pow2(int(mtotal.max()))
-        j = torch.arange(mc, device=dev)[None, :]
-        idx = torch.clamp(mstart[:, None] + j, max=flat.shape[0] - 1)
-        mem = torch.where(j < mtotal[:, None], flat[idx], inflate.END)
-        out_len = lz77._ceil_pow2(max(metas[i][3] for i in huff))
-        payload, lengths = inflate.expand_commands(
-            mem >> 26, mem & 0x3FF, (mem >> 10) & 0xFFFF, out_len)
-        crcs = checksum.crc32_batch_device(payload, lengths)
-        lengths = lengths.cpu().numpy()
-        payload = payload.cpu().numpy()
-        for k, i in enumerate(huff):
-            _, _, crc, isize = metas[i]
-            if int(lengths[k]) != isize or int(crcs[k]) != crc:
-                raise de.MalformedError("member length or CRC-32 mismatch")
-            results[i] = payload[k, :isize].tobytes()
+        isizes = [metas[i][3] for i in huff]
+        crcs = [metas[i][2] for i in huff]
+        if expand != "device":
+            members = _expand_native(flat[:total], bounds, isizes, crcs)
+        else:
+            members = _expand_device(flat, bounds, isizes, crcs)
+        for i, out in zip(huff, members):
+            results[i] = out
     for i, (p, _, crc, isize) in enumerate(metas):
         if p[0] == "stored":
             if len(p[1]) != isize or checksum.crc32(p[1], device=dev) != crc:
                 raise de.MalformedError("member length or CRC-32 mismatch")
             results[i] = p[1]
     return b"".join(results)
+
+
+def _expand_native(flat: torch.Tensor, bounds: torch.Tensor, isizes: list,
+                   crcs: list) -> list:
+    """The host route: the compacted commands fetched once, each member's
+    span ``flat[bounds[k]:bounds[k + 1]]`` expanded by the native library
+    into an ``isize + 4`` buffer and checked by length and CRC-32."""
+    flat = flat.cpu().numpy().astype(np.uint32)
+    bounds = bounds.cpu().numpy()
+    out = []
+    for k, (isize, crc) in enumerate(zip(isizes, crcs)):
+        buf = np.empty(isize + 4, np.uint8)
+        try:
+            produced = native.expand_cmds(
+                np.ascontiguousarray(flat[bounds[k]:bounds[k + 1]]), buf)
+        except ValueError as e:
+            raise de.MalformedError("member length or CRC-32 mismatch") from e
+        if produced != isize or native.crc32(buf[:isize]) != crc:
+            raise de.MalformedError("member length or CRC-32 mismatch")
+        out.append(buf[:isize].tobytes())
+    return out
+
+
+def _expand_device(flat: torch.Tensor, bounds: torch.Tensor, isizes: list,
+                   crcs: list) -> list:
+    """The device route: the members' command streams regrouped into one
+    row each, expanded and CRC-checked on their device."""
+    dev = flat.device
+    mstart, mtotal = bounds[:-1], torch.diff(bounds)
+    mc = lz77._ceil_pow2(int(mtotal.max()))
+    j = torch.arange(mc, device=dev)[None, :]
+    idx = torch.clamp(mstart[:, None] + j, max=flat.shape[0] - 1)
+    mem = torch.where(j < mtotal[:, None], flat[idx], inflate.END)
+    payload, lengths = inflate.expand_commands(
+        mem >> 26, mem & 0x3FF, (mem >> 10) & 0xFFFF, lz77._ceil_pow2(max(isizes)))
+    got = checksum.crc32_batch_device(payload, lengths)
+    lengths = lengths.cpu().numpy()
+    payload = payload.cpu().numpy()
+    out = []
+    for k, (isize, crc) in enumerate(zip(isizes, crcs)):
+        if int(lengths[k]) != isize or int(got[k]) != crc:
+            raise de.MalformedError("member length or CRC-32 mismatch")
+        out.append(payload[k, :isize].tobytes())
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,8 @@ the decode passes ``stage``'s ``nbits`` and ``blocks`` where the package
 stages them, and prints the synchronisation rounds per row where its
 kernel reports them.  The CRC stage is ``checksum.crc32_batch_device`` on
 the arguments the sharded decode passes it (65 payload rows), with the
-copy of its result to the host; where the package has
+copy of its result to the host (the decode on its ``expand="device"``
+route where it has one); where the package has
 ``crc_cu.crc32_rows``, that kernel is also timed alone with each block
 size (1, 2, 4 and 8 sub-spans).  The sharded round trip runs
 ``WALL_RUNS`` more times, warm, each CRC call timed on the host clock
@@ -35,6 +36,7 @@ overwritten before each call (cold).  Exits 2 without CUDA.
 
 from __future__ import annotations
 
+import inspect
 import json
 import pathlib
 import statistics
@@ -103,21 +105,30 @@ def sharded_walls(torch, sharded, checksum, data: bytes, archive: bytes) -> dict
     """Median warm walls (ms) of WALL_RUNS sharded round trips and of the
     CRC calls inside each half, every CRC call timed on the host clock
     between synchronizations; with the arguments of the decode's CRC."""
-    crc_batch = checksum.crc32_batch_device
+    # a package whose writer queues the CRC on the card calls it as
+    # crc32_rows_device, which crc32_batch_device also calls; its decode
+    # runs the CRC only on the device route
+    crc_name = ("crc32_rows_device" if hasattr(checksum, "crc32_rows_device")
+                else "crc32_batch_device")
+    crc_batch = getattr(checksum, crc_name)
+    decode_kw = ({"expand": "device"} if "expand" in inspect.signature(
+        sharded.sharded_gzip_decompress).parameters else {})
     spent, calls = [], []
 
     def timed(data_2d, lengths):
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = crc_batch(data_2d, lengths)
+        torch.cuda.synchronize()
         spent.append(time.perf_counter() - t)
         calls.append((data_2d, lengths))
         return out
 
     halves = {"compress": lambda: sharded.sharded_gzip_compress(data, 6, device="cuda"),
-              "decompress": lambda: sharded.sharded_gzip_decompress(archive, device="cuda")}
+              "decompress": lambda: sharded.sharded_gzip_decompress(
+                  archive, device="cuda", **decode_kw)}
     walls = {f"{h}{part}": [] for h in halves for part in ("", "_crc")}
-    checksum.crc32_batch_device = timed
+    setattr(checksum, crc_name, timed)
     try:
         for _ in range(WALL_RUNS):
             for half, fn in halves.items():
@@ -130,7 +141,7 @@ def sharded_walls(torch, sharded, checksum, data: bytes, archive: bytes) -> dict
                 walls[f"{half}_crc"].append(1e3 * sum(spent))
                 walls[f"{half}_crc_calls"] = len(spent)
     finally:
-        checksum.crc32_batch_device = crc_batch
+        setattr(checksum, crc_name, crc_batch)
     out = {k: v for k, v in walls.items() if not isinstance(v, list)}
     for k, v in walls.items():
         if isinstance(v, list):

@@ -37,7 +37,8 @@ def test_core_constants_match_reference(mod, ref):
 
 
 def test_de_constants_match_reference():
-    for name in ("SEGMENT_SIZE", "_HDR_PAD", "MAX_DEVICE_BATCH", "STRATEGY_LEVELS"):
+    for name in ("SEGMENT_SIZE", "_HDR_PAD", "MAX_DEVICE_BATCH", "STRATEGY_LEVELS",
+                 "PIPELINE_DEPTH"):
         assert getattr(de, name) == getattr(ref_de, name), name
     assert de.MAX_DEVICE_BATCH == 8
     for name in ("_FIXED_LIT_BITS", "_FIXED_DIST_BITS", "_LEN_EXTRA_OF_SYM",

@@ -28,10 +28,17 @@ calls on the CPU.  LZO compression (its mark-path and histogram
 launches counted), the fixed-Huffman step (B = 2, 8 and 3, with history;
 each row decoded by zlib), ``compress_step_sharded`` on ``make_mesh()`` and
 on one card twice, and a mesh archive on both, equal to the CPU port.
+The schedules: the level-6 gzip of the 8 MiB corpus at PIPELINE_DEPTH 4
+and 1 against the reference's digest; every host read of the pipelined
+and windowed writers, as received, equal to a blocking re-read; both
+writers under ``torch.cuda.set_sync_debug_mode("error")``; both
+``expand`` routes of the sharded decode, with their launches, and a
+flipped CRC-32 rejected on each.
 """
 
 import functools
 import gzip
+import hashlib
 import pathlib
 import zlib
 
@@ -41,7 +48,8 @@ import torch
 
 from decompress_tpu_torch import _build, de, gz, lzo, parallel, zl
 from decompress_tpu_torch.ops import (bitpack, checksum, cost_cu, crc_cu, hist_cu, inflate,
-                                      inflate_cu, lz77, pack_cu, parse_cu, pipeline)
+                                      inflate_cu, lz77, pack_cu, parse_cu, pipeline,
+                                      transfer)
 from decompress_tpu_torch.parallel import sharded
 
 pytestmark = pytest.mark.cuda
@@ -346,14 +354,94 @@ def test_crc_kernel(dev, width):
     assert host.tolist() == crcs.tolist()
 
 
-def test_sharded_round_trip_on_card(dev):
+@pytest.mark.parametrize("expand", ["auto", "device"])
+def test_sharded_round_trip_on_card(dev, expand):
     sharded.serial_fallbacks.clear()
     x = (CORPUS / "book1").read_bytes()[:200_000] + bytes(50_000)
     arch = sharded.sharded_gzip_compress(x, member_size=65536, device="cuda")
     assert arch == sharded.sharded_gzip_compress(x, member_size=65536, device="cpu")
     assert gzip.decompress(arch) == x
-    assert sharded.sharded_gzip_decompress(arch, device="cuda") == x
+    _build.LAUNCHES.clear()
+    assert sharded.sharded_gzip_decompress(arch, expand=expand, device="cuda") == x
     assert not sharded.serial_fallbacks
+    assert _build.LAUNCHES["decode"] == 1
+    # a CRC launch per stored member on both routes, and one for all the
+    # decoded members on the device route
+    metas = sharded.decode_plan(np.frombuffer(bytes(arch), np.uint8))[0]
+    stored = sum(p[0] == "stored" for p, *_ in metas)
+    assert _build.LAUNCHES["crc32_rows"] == stored + (expand == "device")
+
+
+def test_decode_routes_reject_a_flipped_crc_on_card(dev):
+    x = (CORPUS / "book1").read_bytes()[:200_000]
+    arch = bytearray(sharded.sharded_gzip_compress(x, member_size=65536, device="cuda"))
+    arch[-5] ^= 1  # the last member's CRC-32
+    for expand in ("auto", "device"):
+        with pytest.raises(de.MalformedError, match="CRC-32"):
+            sharded.sharded_gzip_decompress(bytes(arch), expand=expand, device="cuda")
+
+
+def _corpus_8mib() -> bytes:
+    """chip_smoke.py's corpus: the corpus files, sorted, concatenated,
+    repeated and cut to 8 MiB (65 segments: 9 batches)."""
+    base = b"".join(p.read_bytes() for p in sorted(CORPUS.iterdir()))
+    return (base * -(-(8 << 20) // len(base)))[:8 << 20]
+
+
+#: the reference's default-level gzip of _corpus_8mib() (chip_smoke.EXPECT)
+LEVEL6_EXPECT = (2854697, "eafff4741db8b10690dc785fcd9e4cbcf5d6dc0eb07cba3c199fe36e754842f4")
+
+
+def test_pipeline_depths_match_reference_digest(dev, monkeypatch):
+    x = _corpus_8mib()
+    out = gz.compress(x, device="cuda")
+    assert (len(out), hashlib.sha256(out).hexdigest()) == LEVEL6_EXPECT
+    monkeypatch.setattr(de, "PIPELINE_DEPTH", 1)
+    assert gz.compress(x, device="cuda") == out
+
+
+def test_pipelined_host_reads_match_blocking_reads(dev, monkeypatch):
+    """Every host read of the pipelined writer and the windowed sharded
+    writer, as the code received it from its event-ordered copy, equals a
+    blocking re-read of the same device tensors: a pinned buffer read
+    before its event fired would differ."""
+    checked = []
+    wait = transfer.Fetch.wait
+
+    def checked_wait(self, *keys):
+        arrays = wait(self, *keys)
+        got = [a.copy() for a in arrays]  # as received, before anything syncs
+        for k, g in zip(keys, got):
+            want = self.sources[k].cpu().numpy()
+            assert np.array_equal(g, want), k
+            checked.append(k)
+        return arrays
+
+    monkeypatch.setattr(transfer.Fetch, "wait", checked_wait)
+    x = _corpus_8mib()[: 6 << 20]  # 49 segments: 7 batches, 7 chunks
+    assert hashlib.sha256(gz.compress(x, device="cuda")).hexdigest() == \
+        hashlib.sha256(gz.compress(x, device="cpu")).hexdigest()
+    arch = sharded.sharded_gzip_compress(x, device="cuda")
+    assert gzip.decompress(arch) == x
+    assert {"exact", "hist_lit", "hist_dist", "dist_counts", "totals", "words",
+            "crcs"} <= set(checked)
+
+
+def test_pipelined_writers_never_block_the_stream(dev):
+    """Under torch's sync debug mode set to raise, the pipelined gzip and
+    the windowed sharded writer run with no blocking copy and no stream or
+    device synchronize (the one-time device tables are made first)."""
+    x = _corpus_8mib()[: 5 << 20]
+    want = gz.compress(x, device="cuda")
+    want_a = sharded.sharded_gzip_compress(x, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = gz.compress(x, device="cuda")
+        got_a = sharded.sharded_gzip_compress(x, device="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got == want and got_a == want_a
 
 
 @pytest.mark.parametrize("kw", [dict(level=1), dict(level=6), dict(level=9),

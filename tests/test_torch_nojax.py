@@ -1,7 +1,9 @@
 """The port never imports JAX or the reference package: with ``jax`` and
 ``decompress_tpu`` made unimportable, importing ``decompress_tpu_torch``,
-compressing 10 KB on the CPU at levels 4 and 6 (round B), a sharded
-archive's round trip, zlib framing (one-shot and sharded), the host
+compressing 10 KB on the CPU at levels 4 and 6 (round B) and in five
+batches (the pipelined schedule), a sharded archive's round trip and one
+of three chunks (the windowed schedule) decoded on both ``expand``
+routes, zlib framing (one-shot and sharded), the host
 decode through the native library, Adler-32, the streaming codecs
 (``streaming``, ``lz``, the streaming ``zl`` / ``gz`` classes, both
 engines), LZO, the fixed-Huffman step (``ops.pipeline``) alone and over a
@@ -29,7 +31,7 @@ import decompress_tpu_torch
 from decompress_tpu_torch import _build, cli, de, gz, lz, lzo, native, streaming, zl
 from decompress_tpu_torch.ops import (bitpack, checksum, codes, cost_cu, crc_cu,
                                       hist_cu, inflate, inflate_cu, lz77,
-                                      pack_cu, parse_cu, pipeline)
+                                      pack_cu, parse_cu, pipeline, transfer)
 from decompress_tpu_torch.parallel import multihost, sharded
 from decompress_tpu_torch.utils import config, profiling
 x = open("tests/corpus/paper1", "rb").read()[:10_000]
@@ -40,6 +42,13 @@ assert gzip.decompress(out) == x
 arch = sharded.sharded_gzip_compress(x, member_size=4096, device="cpu")
 assert gzip.decompress(arch) == x
 assert sharded.sharded_gzip_decompress(arch, device="cpu") == x
+# five batches of 256-byte segments: the pipelined schedule past its depth
+assert zlib.decompress(de.deflate(x, 1, segment_size=256, device="cpu"), -15) == x
+# three chunks of 512-byte members: the windowed schedule; both decode routes
+small = sharded.sharded_gzip_compress(x, member_size=512, device="cpu")
+assert gzip.decompress(small) == x
+for expand in ("auto", "device"):
+    assert sharded.sharded_gzip_decompress(small, expand=expand, device="cpu") == x
 assert not sharded.serial_fallbacks
 assert gz.decompress(out) == x and de.inflate(out[10:-8]) == x
 z = zl.deflate(x, segment_size=4096, device="cpu")
@@ -111,8 +120,8 @@ _REFERENCE_IMPORT = re.compile(r"^\s*(import|from)\s+decompress_tpu(\.|\s|$)", r
 def test_no_reference_import_lines():
     files = sorted((ROOT / "decompress_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     names = {str(p.relative_to(ROOT / "decompress_tpu_torch")) for p in files[:-1]}
-    assert {"lzo.py", "cli.py", "ops/pipeline.py", "parallel/multihost.py",
-            "utils/config.py", "utils/profiling.py"} <= names
+    assert {"lzo.py", "cli.py", "ops/pipeline.py", "ops/transfer.py",
+            "parallel/multihost.py", "utils/config.py", "utils/profiling.py"} <= names
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if _REFERENCE_IMPORT.search(p.read_text())]
     assert offenders == []

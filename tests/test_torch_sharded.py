@@ -15,7 +15,9 @@ plain PyTorch versions of the kernels on the CPU) against the reference
   legacy command-stride index, split bits past the members' bodies and a
   member with a reserved block type take the serial route and are counted
   in ``serial_fallbacks``; a row the decode rejects and a corrupt member
-  CRC raise without it;
+  CRC raise without it; both ``expand`` routes (the default host
+  expansion and ``expand="device"``) and an unknown value restore the
+  archives, as the reference's decode with the same ``expand`` does;
 * a 2^19-byte member whose final split row holds more than 65,535
   commands (the TB index's u16 row maximum saturates): byte-identical to
   the reference's archive and decoded by the counted serial route, as
@@ -41,6 +43,7 @@ import pytest
 import torch
 
 from decompress_tpu import de as ref_de
+from decompress_tpu import native as ref_native
 from decompress_tpu.ops import bitpack as ref_bitpack
 from decompress_tpu.ops import lz77 as ref_lz77
 from decompress_tpu.parallel import sharded as ref
@@ -190,11 +193,35 @@ def no_serial(monkeypatch):
         f"serial route taken: {reason}"))
 
 
+#: the decode's expand= values: the default and its host route, the device
+#: route, and an unknown value (the host route, as in the reference)
+EXPAND = ["auto", "device", "elsewhere"]
+
+
+@pytest.fixture
+def ref_native_off(monkeypatch):
+    """The reference's host library is not loaded here (its in-place build
+    has no cross-process guard): its decode takes its device route, which
+    returns the same bytes."""
+    monkeypatch.setattr(ref_native, "available", lambda: False)
+
+
+@pytest.mark.parametrize("expand", EXPAND)
 @pytest.mark.parametrize("which", [0, 1], ids=["port", "reference"])
 @pytest.mark.parametrize("level,split_bits", [(4, 4096), (6, 8192)])
-def test_decompress_round_trip(no_serial, level, split_bits, which):
+def test_decompress_round_trip(no_serial, ref_native_off, monkeypatch, level, split_bits,
+                               which, expand):
     arch = _pair(level, split_bits)[which]
-    assert sharded.sharded_gzip_decompress(arch, device="cpu") == PAYLOAD
+    routes = []
+    for name in ("_expand_native", "_expand_device"):
+        fn = getattr(sharded, name)
+        monkeypatch.setattr(sharded, name, lambda *a, fn=fn, name=name: (
+            routes.append(name), fn(*a))[1])
+    assert sharded.sharded_gzip_decompress(arch, expand=expand, device="cpu") == PAYLOAD
+    if expand == "auto":
+        assert sharded.sharded_gzip_decompress(arch, device="cpu") == PAYLOAD
+    assert set(routes) == {"_expand_device" if expand == "device" else "_expand_native"}
+    assert ref.sharded_gzip_decompress(arch, expand=expand) == PAYLOAD
     assert not sharded.serial_fallbacks
 
 
@@ -238,16 +265,19 @@ def test_serial_route_is_counted(ref_host):
     assert sum(sharded.serial_fallbacks.values()) == 4
 
 
-def test_card_decode_failure_raises(no_serial):
+@pytest.mark.parametrize("expand", EXPAND[:2])
+def test_card_decode_failure_raises(no_serial, expand):
     """After the decode has run, a rejected row or a CRC-32 mismatch
-    raises and is never decoded again on the host."""
+    raises on either expand route and is never decoded again on the host."""
     # a command capacity of 0 recorded for every member: no row finishes
     with pytest.raises(de.MalformedError, match="invalid stream"):
-        sharded.sharded_gzip_decompress(_with_tb(max_cmds=0), device="cpu")
-    bad_crc = bytearray(_pair(6)[0])
-    bad_crc[-5] ^= 1  # the last member's CRC-32
-    with pytest.raises(de.MalformedError, match="CRC-32"):
-        sharded.sharded_gzip_decompress(bytes(bad_crc), device="cpu")
+        sharded.sharded_gzip_decompress(_with_tb(max_cmds=0), expand=expand, device="cpu")
+    sizes = sharded._read_index_ex(np.frombuffer(_pair(6)[0], np.uint8))[0]
+    for end in (sizes[0], sum(sizes)):  # the first and the last member's CRC-32
+        bad_crc = bytearray(_pair(6)[0])
+        bad_crc[end - 5] ^= 1
+        with pytest.raises(de.MalformedError, match="CRC-32"):
+            sharded.sharded_gzip_decompress(bytes(bad_crc), expand=expand, device="cpu")
     assert not sharded.serial_fallbacks
 
 
