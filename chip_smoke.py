@@ -95,13 +95,28 @@ Phases, each raising at its first failure:
      sharded_gzip_compress_multihost of the corpus, both the
      single-process archive, with each rank's walls; (f) the CLI in
      subprocesses, the corpus on stdin: -f gzip, zlib and lzo at level 6
-     against their digests, and -d of each back to the corpus.
+     against their digests, and -d of each back to the corpus;
+ 11. archives with no bit-stride index, decoded on the card: (a) the
+     corpus written with the legacy TS index (SPLIT_BITS 0 on the module
+     for the call: 65 members, a triple every 2,048 commands), (b) the
+     corpus repeated to 192 MiB (201,326,592 bytes) at the default member
+     size, which the writer indexes by member sizes alone (checked); each
+     decoded on both expand routes to the input with no serial fallback
+     and one decode launch a group (crc32_rows on "device"), cold and warm,
+     with interleaved warm walls beside the host gz.decompress of the same
+     archive and a stage split of each route; the decode kernel on (a)'s
+     TS rows and on (b)'s whole-member rows against its plain version,
+     with its device time, bound and synchronisation rounds; and (a) with
+     its first member's
+     CRC-32 flipped raising the reference's gz.MalformedError("invalid
+     checksum") through the serial route, counted once.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the path that uses them (the default
 level-6 gz.compress for the compression kernels, the sharded round trip
-decoded with expand="device" for decode and CRC), errors, times and bounds (the CRC's: the bytes up to
-each length read once); "ms" is a CUDA-event loop
-of launches, "device_ms" and "device_cold_ms" the kernels' own device
+decoded with expand="device" for decode and CRC), errors, times and
+bounds (the CRC's: the bytes up to each length read once; the decode's
+also at phase 11's whole-member rows); "ms" is a CUDA-event loop of
+launches, "device_ms" and "device_cold_ms" the kernels' own device
 time from a profile, L2-warm and with the L2 flushed before each launch.
 Exits nonzero, with no result, where CUDA is absent.
 """
@@ -162,6 +177,10 @@ BLOCKING_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSy
                   "cudaMemcpy")
 #: interleaved warm runs of each side of a wall comparison
 WALL_RUNS = 5
+#: phase 11: the corpus repeated to this size, written with no split index
+SIZES_ONLY_BYTES = 192 << 20
+#: phase 11: interleaved warm walls of each route on that archive
+BIG_WALL_RUNS = 3
 #: the CUDA kernels of csrc/ (device-side names in a profile)
 PORT_KERNELS = ("chunk_exit_kernel", "chunk_hop_kernel", "chunk_refine_kernel",
                 "hist_kernel", "litbits_tally_kernel", "litbits_scan_kernel", "gain_kernel",
@@ -636,13 +655,52 @@ def profile_run(torch, fn, card, title: str) -> None:
         print(f"  device {us / 1e3:8.3f} ms  {kname[:110]}")
 
 
+def decode_stages(torch, decompress, title: str, runs: int, card) -> None:
+    """The sharded decode's stage split: ``runs`` calls of decompress()
+    with each stage's function wrapped in a synchronized host-clock timer
+    (a stage called once a group adds up over the groups)."""
+    from decompress_tpu_torch.ops import checksum, inflate, inflate_cu
+    from decompress_tpu_torch.parallel import sharded
+
+    stages = {"host plan (decode_plan)": (sharded, "decode_plan"),
+              "staging and tables (stage)": (inflate_cu, "stage"),
+              "decode kernel (decode)": (inflate_cu, "decode"),
+              "compaction (slot_counts_bits)": (inflate, "slot_counts_bits"),
+              "compaction (compact_commands)": (inflate, "compact_commands"),
+              "expansion (expand_commands)": (inflate, "expand_commands"),
+              "CRC (crc32_batch_device)": (checksum, "crc32_batch_device"),
+              "host expansion and CRC (_expand_native)": (sharded, "_expand_native")}
+    spent = dict.fromkeys(stages, 0.0)
+    originals = {label: getattr(mod, attr) for label, (mod, attr) in stages.items()}
+
+    def stage_timer(label, fn):
+        def wrapper(*args, **kw):
+            out, dt = timed_call(torch, lambda: fn(*args, **kw))
+            spent[label] += dt
+            return out
+        return wrapper
+
+    for label, (mod, attr) in stages.items():
+        setattr(mod, attr, stage_timer(label, originals[label]))
+    try:
+        for r in range(runs):
+            for label in stages:
+                spent[label] = 0.0
+            _, wall = timed_call(torch, decompress)
+            parts = ", ".join(f"{label} {1e3 * t:.1f} ms" for label, t in spent.items() if t)
+            print(f"decode stages, {title}, run {r + 1}: wall {1e3 * wall:.1f} ms; {parts} "
+                  f"[{card}]", flush=True)
+    finally:
+        for label, (mod, attr) in stages.items():
+            setattr(mod, attr, originals[label])
+
+
 def sharded_path(torch, data: bytes, wrappers, card):
     """Phase 6: the sharded round trip, each half run cold, then warm with
     every launch count set to 0 just before it; checks the archive against
     the reference's and the round trip, prints walls and the decode's
     stage split.  Returns (archive, launches of both warm halves)."""
     from decompress_tpu_torch import _build
-    from decompress_tpu_torch.ops import checksum, inflate, inflate_cu
     from decompress_tpu_torch.parallel import sharded
 
     def timed(fn):
@@ -667,24 +725,6 @@ def sharded_path(torch, data: bytes, wrappers, card):
                              f"{len(archive)} bytes, sha256 {sha}")
     if gzip.decompress(archive) != data:
         raise AssertionError("gzip.decompress does not restore the sharded archive")
-
-    stages = {"host plan (decode_plan)": (sharded, "decode_plan"),
-              "staging and tables (stage)": (inflate_cu, "stage"),
-              "decode kernel (decode)": (inflate_cu, "decode"),
-              "compaction (slot_counts_bits)": (inflate, "slot_counts_bits"),
-              "compaction (compact_commands)": (inflate, "compact_commands"),
-              "expansion (expand_commands)": (inflate, "expand_commands"),
-              "CRC (crc32_batch_device)": (checksum, "crc32_batch_device"),
-              "host expansion and CRC (_expand_native)": (sharded, "_expand_native")}
-    spent = dict.fromkeys(stages, 0.0)
-    originals = {label: getattr(mod, attr) for label, (mod, attr) in stages.items()}
-
-    def stage_timer(label, fn):
-        def wrapper(*args, **kw):
-            out, dt = timed(lambda: fn(*args, **kw))
-            spent[label] += dt
-            return out
-        return wrapper
 
     def decompress(expand):
         return sharded.sharded_gzip_decompress(archive, expand=expand, device="cuda")
@@ -730,21 +770,8 @@ def sharded_path(torch, data: bytes, wrappers, card):
         print(f"sharded decode warm wall, expand={expand!r}, interleaved: {spread(w)} "
               f"[{card}]", flush=True)
 
-    for label, (mod, attr) in stages.items():
-        setattr(mod, attr, stage_timer(label, originals[label]))
-    try:
-        for expand in ("device", "auto"):
-            for r in range(3):
-                for label in stages:
-                    spent[label] = 0.0
-                _, wall = timed(lambda: decompress(expand))
-                parts = ", ".join(f"{label} {1e3 * t:.1f} ms" for label, t in spent.items()
-                                  if t)
-                print(f"decode stages, expand={expand!r}, run {r + 1}: wall "
-                      f"{1e3 * wall:.1f} ms; {parts} [{card}]", flush=True)
-    finally:
-        for label, (mod, attr) in stages.items():
-            setattr(mod, attr, originals[label])
+    for expand in ("device", "auto"):
+        decode_stages(torch, lambda: decompress(expand), f"expand={expand!r}", 3, card)
     launches = {n: launches_c[n] + launches_d[n] for n in wrappers}
     crc_stage(torch, compress, lambda: decompress("device"), launches["crc32_rows"], card)
     return archive, launches
@@ -806,7 +833,8 @@ def decode_crc_checks(torch, dev, data: bytes, archive: bytes, card) -> dict:
     from decompress_tpu_torch.ops import checksum, crc_cu, inflate, inflate_cu
     from decompress_tpu_torch.parallel import sharded
 
-    metas, huff, rows, max_cmds = sharded.decode_plan(np.frombuffer(archive, np.uint8))
+    plan = sharded.decode_plan(np.frombuffer(archive, np.uint8))
+    metas, huff, rows, max_cmds = plan.metas, plan.huff, plan.rows, plan.max_cmds()
 
     def args(st, cap):
         return (st["words"], st["tabs"], st["row_ptr"], st["start"], st["stop"], st["nbits"],
@@ -1405,6 +1433,172 @@ def cli_path(data: bytes, card) -> None:
               f"[{card}]", flush=True)
 
 
+def decode_routes(torch, label: str, archive: bytes, want: bytes, card, runs: int) -> int:
+    """Both expand routes of one archive's decode on the card, each cold,
+    then warm with the counts set to 0 just before it (the decode launched
+    once a group, crc32_rows on "device", no serial fallback and no card
+    retry); ``runs`` interleaved warm walls of each route and of the host
+    gz.decompress of the same archive; one stage split of each route.
+    Returns the decode launches counted in the warm "device" run."""
+    import numpy as np
+
+    from decompress_tpu_torch import _build, gz
+    from decompress_tpu_torch.parallel import sharded
+
+    groups = len(sharded._groups(sharded.decode_plan(np.frombuffer(archive, np.uint8))))
+
+    def run(route):
+        if route == "host":
+            return gz.decompress(archive)
+        return sharded.sharded_gzip_decompress(archive, expand=route, device="cuda")
+
+    measured = {}
+    for expand in ("device", "auto"):
+        sharded.serial_fallbacks.clear()
+        sharded.card_retries.clear()
+        _, cold = timed_call(torch, lambda: run(expand))
+        _build.LAUNCHES.clear()
+        out, warm = timed_call(torch, lambda: run(expand))
+        launches = {n: _build.LAUNCHES[n] for n in ("decode", "crc32_rows")}
+        measured[expand] = launches["decode"]
+        print(f"{label}: sharded_gzip_decompress(expand={expand!r}) -> {len(out)} bytes; "
+              f"launches {launches} for {groups} groups; serial fallbacks "
+              f"{dict(sharded.serial_fallbacks)}, card retries {dict(sharded.card_retries)}; "
+              f"cold {cold:.4f} s, warm {warm:.4f} s [{card}]", flush=True)
+        if out != want:
+            raise AssertionError(f"{label}: expand={expand!r} does not restore the input")
+        if sharded.serial_fallbacks or sharded.card_retries:
+            raise AssertionError(f"{label}: serial route or card retry taken: "
+                                 f"{dict(sharded.serial_fallbacks)} {dict(sharded.card_retries)}")
+        if launches["decode"] != groups or (expand == "device" and launches["crc32_rows"] <= 0):
+            raise AssertionError(f"{label}: expand={expand!r} launched {launches} for "
+                                 f"{groups} groups")
+    walls = {"device": [], "auto": [], "host": []}
+    for r in range(runs):
+        for route in (("device", "auto", "host") if r % 2 == 0 else ("host", "auto", "device")):
+            out, wall = timed_call(torch, lambda: run(route))
+            if out != want:
+                raise AssertionError(f"{label}: the {route} route does not restore the input")
+            walls[route].append(wall)
+    for route, w in walls.items():
+        name = "host gz.decompress" if route == "host" else f"expand={route!r}"
+        print(f"{label}: warm wall, {name}, interleaved: {spread(w)} = "
+              f"{len(want) / statistics.median(w) / 1e6:.2f} MB/s [{card}]", flush=True)
+    for expand in ("device", "auto"):
+        decode_stages(torch, lambda: run(expand), f"{label}, expand={expand!r}", 1, card)
+    return measured["device"]
+
+
+def decode_kernel_at(torch, plan, dev, label: str, card) -> dict:
+    """The decode kernel on every row of an archive's plan, against its
+    plain version on the same inputs; its device ms L2-warm and cold, its
+    bound (the bodies read once, the commands written once), and the
+    rows' synchronisation rounds."""
+    from decompress_tpu_torch.ops import inflate_cu
+
+    huff, metas = plan.huff, plan.metas
+    st = inflate_cu.stage([metas[i][1] for i in huff], [metas[i][0][1] for i in huff],
+                          [metas[i][0][2] for i in huff], plan.rows, dev)
+    args = (st["words"], st["tabs"], st["row_ptr"], st["start"], st["stop"], st["nbits"],
+            st["blocks"], plan.max_cmds())
+    rounds = torch.empty_like(st["start"])
+    got = inflate_cu.decode(*args, rounds=rounds)
+    want, plain_s = timed_call(torch, lambda: inflate_cu.decode_plain(*args))
+    err = max_abs_err(torch, got, want)
+    if err or not bool(got[1].all()):
+        raise AssertionError(f"decode on {label}: max |err| {err} against plain, "
+                             f"ok {bool(got[1].all())}")
+    ms = time_ms(torch, lambda: inflate_cu.decode(*args), iters=5, warmup=1)
+    warm, _ = device_split(torch, lambda: inflate_cu.decode(*args), iters=5)
+    scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    cold, _ = device_split(torch, lambda: inflate_cu.decode(*args), iters=5,
+                           flush=lambda: scratch.fill_(1))
+    moved = sum(metas[i][1].size for i in huff) + 4 * int(got[2].sum())
+    # None where the profiler recorded no kernel (it now and then records none)
+    stat = dict(rows=int(st["start"].numel()), max_cmds=plan.max_cmds(), max_abs_err=err, ms=ms,
+                device_ms=sum(warm.values()) if warm else None,
+                device_cold_ms=sum(cold.values()) if cold else None,
+                plain_ms=1e3 * plain_s, bound_ms=1e3 * moved / HBM_BYTES_PER_S,
+                bound_by="bytes", mean_rounds=float(rounds.to(torch.float64).mean()),
+                max_rounds=int(rounds.max()))
+    warm_s, cold_s = ("not recorded" if v is None else f"{v:.4f} ms"
+                      for v in (stat["device_ms"], stat["device_cold_ms"]))
+    print(f"decode, {label}: {stat['rows']} rows of {len(huff)} members (max_cmds "
+          f"{stat['max_cmds']}), equal to plain; kernel {ms:.4f} ms (device "
+          f"{warm_s} L2-warm, {cold_s} cold), plain "
+          f"{stat['plain_ms']:.1f} ms, bound {stat['bound_ms']:.4f} ms ({moved} bytes); "
+          f"synchronisation rounds per row mean {stat['mean_rounds']:.3f}, max "
+          f"{stat['max_rounds']} [{card}]", flush=True)
+    return stat
+
+
+def index_kinds_path(torch, dev, data: bytes, card) -> dict:
+    """Phase 11: archives with no bit-stride index, decoded on the card.
+    (a) the corpus written with the legacy TS index (SPLIT_BITS 0 on the
+    module for the call), its decode routes, the decode kernel on its
+    rows, and one member's CRC-32 flipped (the reference's error through
+    the counted serial route);
+    (b) the corpus repeated to SIZES_ONLY_BYTES, written at the default
+    member size (the writer falls back to the member sizes alone), its
+    decode routes, and the decode kernel on its whole-member rows.
+    Returns the whole-member kernel's numbers."""
+    import numpy as np
+
+    from decompress_tpu_torch import gz
+    from decompress_tpu_torch.parallel import sharded
+
+    saved = sharded.SPLIT_BITS
+    sharded.SPLIT_BITS = 0
+    try:
+        ts, wall = timed_call(torch, lambda: sharded.sharded_gzip_compress(data, 6, device="cuda"))
+    finally:
+        sharded.SPLIT_BITS = saved
+    buf = np.frombuffer(ts, np.uint8)
+    sizes, splits, tb = sharded._read_index_ex(buf)
+    if tb is not None or splits is None or gzip.decompress(ts) != data:
+        raise AssertionError("the SPLIT_BITS 0 archive is not a TS-indexed archive of the input")
+    plan = sharded.decode_plan(buf)
+    print(f"index kinds: TS archive of {len(data)} bytes -> {len(ts)} bytes in {wall:.4f} s "
+          f"(cold), {len(plan.huff)} members, {sum(map(len, plan.rows))} rows, max_cmds "
+          f"{plan.max_cmds()} [{card}]", flush=True)
+    decode_routes(torch, "TS 8 MiB", ts, data, card, WALL_RUNS)
+    decode_kernel_at(torch, plan, dev, "TS rows", card)
+    bad = bytearray(ts)
+    bad[sizes[0] - 5] ^= 1  # the first member's CRC-32
+    sharded.serial_fallbacks.clear()
+    sharded.card_retries.clear()
+    try:
+        sharded.sharded_gzip_decompress(bytes(bad), device="cuda")
+        raise AssertionError("a flipped member CRC-32 decoded")
+    except gz.MalformedError as e:
+        if str(e) != "invalid checksum":
+            raise
+    counted = {"member length or CRC-32 mismatch": 1}
+    if dict(sharded.serial_fallbacks) != counted or dict(sharded.card_retries) != counted:
+        raise AssertionError(f"reject counted as {dict(sharded.serial_fallbacks)}, "
+                             f"{dict(sharded.card_retries)}")
+    print("index kinds: TS archive with the first member's CRC-32 flipped: the member decoded "
+          "again whole on the card, then gz.MalformedError('invalid checksum') by the serial "
+          f"route; card retries {dict(sharded.card_retries)}, serial fallbacks "
+          f"{dict(sharded.serial_fallbacks)}", flush=True)
+
+    big = (data * -(-SIZES_ONLY_BYTES // len(data)))[:SIZES_ONLY_BYTES]
+    arch, wall = timed_call(torch, lambda: sharded.sharded_gzip_compress(big, 6, device="cuda"))
+    buf = np.frombuffer(arch, np.uint8)
+    if sharded._read_index_ex(buf)[1] is not None:
+        raise AssertionError("the large archive carries a split subfield")
+    if gzip.decompress(arch) != big:
+        raise AssertionError("gzip.decompress does not restore the large archive")
+    plan = sharded.decode_plan(buf)
+    print(f"index kinds: sizes-only archive of {len(big)} bytes -> {len(arch)} bytes in "
+          f"{wall:.4f} s (cold, {len(big) / wall / 1e6:.2f} MB/s), {len(plan.huff)} members of "
+          f"one row each, max_cmds {plan.max_cmds()}, {len(sharded._groups(plan))} groups "
+          f"[{card}]", flush=True)
+    launches = decode_routes(torch, "sizes-only 192 MiB", arch, big, card, BIG_WALL_RUNS)
+    return dict(decode_kernel_at(torch, plan, dev, "whole-member rows", card),
+                launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -1469,6 +1663,9 @@ def main() -> int:
     mesh_path(torch, dev, data, card)
     multiprocess_path(card)
     cli_path(data, card)
+
+    # ---- 11. TS and sizes-only archives decoded on the card ----
+    stats["decode"]["whole_member"] = index_kinds_path(torch, dev, data, card)
 
     kernels = [
         dict(name=name, route="cuda",

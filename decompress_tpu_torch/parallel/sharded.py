@@ -14,27 +14,38 @@ Counterpart of ``decompress_tpu/parallel/sharded.py``.
   plus the compact TB subfield: one byte per split).  Member CRC-32s are
   computed on the card.  The bytes equal the reference's; any gzip
   reader decodes them.
-* :func:`sharded_gzip_decompress` decodes such an archive on the card:
-  every split row of every member at once (``ops/inflate_cu.decode``),
-  then the rows' commands are concatenated per member.  With the
-  reference's default ``expand="auto"`` the compacted stream is fetched
-  once and each member is expanded and CRC-checked on the host by the
-  native library; with ``expand="device"`` expansion and CRC-32 stay on
-  the card.
+* :func:`sharded_gzip_decompress` decodes such an archive on the card,
+  as the reference's decodes it on its device: every row of every member
+  at once (``ops/inflate_cu.decode``), then the rows' commands are
+  concatenated per member.  The rows follow the index: with the TB
+  subfield, its bit-stride splits; with the legacy TS subfield of
+  (bit, command, output) triples, rows between the triples' bit offsets,
+  each interior row checked against its recorded command count; with
+  no split subfield, or a split index whose offsets do not increase, one
+  row a member from its first symbol to the end-of-block.  Members are
+  decoded in groups whose command buffer stays under ``GROUP_BYTES``.
+  With the reference's default ``expand="auto"`` the compacted stream is
+  fetched once and each member is expanded and CRC-checked on the host
+  by the native library; with ``expand="device"`` expansion and CRC-32
+  stay on the card.
 
 Archives the card path does not cover, as the host reads them from the
 index and the block headers before anything goes to the card (no index,
-the legacy command-stride TS index, multi-block members, trees too
-deep for the decode tables, a row too long for the decode kernel, or a
-row command count that saturates the index), take a serial route
-through the host decoder ``gz.decompress``, as the reference's do, so a
-malformed archive there raises the reference's ``gz.MalformedError`` or
-``de.MalformedError`` with its message.  Each use adds one to
-``serial_fallbacks[reason]``, so a fallback is always visible; the
-port's own archives never take it.
-Once the card has decoded, a rejected row or a member whose CRC-32 or
-length does not match raises ``de.MalformedError`` on either ``expand``
-route: the result is never replaced by a serial host decode.
+sizes that do not tile the archive, multi-block members, trees too deep
+for the decode tables, split bits past a member's body, a row too long
+for the decode kernel, or a row command count that saturates the TB
+index), take a serial route through the host decoder ``gz.decompress``,
+as the reference's do, so a malformed archive there raises the
+reference's ``gz.MalformedError`` or ``de.MalformedError`` with its
+message.  Each use adds one to ``serial_fallbacks[reason]``, so a
+fallback is always visible; the port's own archives never take it.
+Members the card rejects after decoding them (a row not decoded, a TS
+row off its recorded count, a length or CRC-32 that does not match)
+decode again on the card, each as one row to its end-of-block, counted
+in ``card_retries``: where the reference decodes such an archive again
+serially, this gives its bytes without the host decode.  What the card
+still rejects then raises the serial route's error, the reference's; a
+host decode never replaces the card's result (:class:`CardFault`).
 
 * :func:`sharded_zlib_compress` writes one zlib stream from members
   compressed as the gzip members are, chained with BFINAL 0 and a sync
@@ -59,6 +70,7 @@ route: the result is never replaced by a serial host decode.
 from __future__ import annotations
 
 import collections
+import typing
 
 import numpy as np
 import torch
@@ -81,9 +93,16 @@ SPLIT_STRIDE = 2048
 SPLIT_BITS = 8192
 #: the TB index's u16 commands-per-row field saturates here
 TB_CMDS_CAP = 65535
+#: command-buffer bytes (rows x max_cmds x 4) of one decode launch, at most:
+#: consecutive members are decoded in groups under it (a member whose own
+#: rows pass it is a group alone)
+GROUP_BYTES = 1 << 30
 
 #: serial-route uses by reason; stays empty for the port's own archives
 serial_fallbacks: collections.Counter = collections.Counter()
+#: archives whose rejected members were decoded again as whole-member
+#: rows on the card, by the first reject's reason
+card_retries: collections.Counter = collections.Counter()
 
 
 def make_mesh(n_devices: int | None = None, device="cuda") -> tuple:
@@ -531,6 +550,11 @@ class _Serial(Exception):
     """The archive takes the serial route; the message is the reason."""
 
 
+class CardFault(RuntimeError):
+    """The card decode rejected members of an archive that the host
+    decoder accepts: a fault of the decode, not of the archive."""
+
+
 def _serial(buf: np.ndarray, reason: str) -> bytes:
     """Serial decode of concatenated gzip members on the host
     (``gz.decompress``, as the reference's serial route); counts the use
@@ -539,16 +563,61 @@ def _serial(buf: np.ndarray, reason: str) -> bytes:
     return gz.decompress(buf)
 
 
-def decode_plan(buf: np.ndarray):
+def _card_reject(buf: np.ndarray, reason: str):
+    """The reference's error for an archive with members the card
+    rejected even as whole-member rows: the serial route raises it.
+    Raises CardFault where that route decodes the archive instead, since
+    a result is never replaced by a host decode once the card has run."""
+    _serial(buf, reason)
+    raise CardFault(f"{reason} on the card, but the host decoder accepts the archive")
+
+
+class DecodePlan(typing.NamedTuple):
+    """The host half of a decode (:func:`decode_plan`).
+
+    ``metas[i]`` = (prepared member, body, crc, isize) of every member;
+    ``huff`` the members decoded on the card; for the k-th of them,
+    ``rows[k]`` the (start, stop) bits of its rows (stop 0 = to
+    end-of-block), ``counts[k]`` each row's recorded command count (-1
+    where the index records none) and ``caps[k]`` the most commands one
+    of its rows may hold."""
+
+    metas: list
+    huff: list
+    rows: list
+    caps: list
+    counts: list
+
+    def max_cmds(self, lo: int = 0, hi: int | None = None) -> int:
+        """The row capacity of one decode launch over members
+        ``huff[lo:hi]``: their largest cap plus 4."""
+        return max(self.caps[lo:hi]) + 4
+
+
+def _split_kind(metas, huff, splits, tb) -> str:
+    """How the index splits the decoded members, as the reference reads
+    it: "tb" (bit-stride), "ts" (legacy triples) or "whole" (no split
+    subfield, one that does not list every member, or one whose bit
+    offsets, or for TS commands, do not increase or whose output offsets
+    pass the member: one row a member)."""
+    if splits is None or len(splits) != len(metas):
+        return "whole"
+    kind = "ts" if tb is None else "tb"
+    for i in huff:
+        prev_bit, prev_cmd, isize = metas[i][0][3], 0, metas[i][3]
+        for bo, ci, oo in (t for t in splits[i] if t[0] > 0):
+            if bo <= prev_bit or (kind == "ts" and (ci <= prev_cmd or oo > isize)):
+                return "whole"
+            prev_bit, prev_cmd = bo, ci
+    return kind
+
+
+def decode_plan(buf: np.ndarray) -> DecodePlan:
     """Host half of the decode: parse the index and every member's block
-    header.  Returns (metas, huff, rows, max_cmds): ``metas[i]`` =
-    (prepared member, body, crc, isize); ``huff`` the members decoded on
-    the card; ``rows[k]`` the (start, stop) bits of the k-th of them's
-    split rows (stop 0 = to end-of-block); ``max_cmds`` the command
-    capacity of a row.  Raises _Serial for what the card path does not
-    cover: split bits outside a member's body, a row longer than
-    ``inflate_cu.MAX_ROW_BITS``, and a member whose recorded row maximum
-    is the TB field's saturated ``TB_CMDS_CAP``."""
+    header, and lay out the rows (:func:`_layout`).  Raises _Serial for
+    what the card path does not cover: no index, sizes that do not tile
+    the archive, a member that is not one block the decode tables hold,
+    and the row faults :func:`_layout` finds."""
     try:
         sizes, splits, tb = _read_index_ex(buf)
     except (de.MalformedError, ValueError) as e:
@@ -579,49 +648,98 @@ def decode_plan(buf: np.ndarray):
         raise _Serial("member not device-decodable")
     huff = [i for i, (p, *_rest) in enumerate(metas) if p[0] == "huff"]
     if not huff:
-        return metas, huff, [], 0
-    if tb is None or splits is None or len(splits) != len(metas):
-        raise _Serial("no bit-stride split index")
-    rows = []
+        return DecodePlan(metas, huff, [], [], [])
+    kind = _split_kind(metas, huff, splits, tb)
+    tri = {i: [] if kind == "whole" else [t for t in splits[i] if t[0] > 0] for i in huff}
+    return _layout(metas, huff, tri, kind, tb)
+
+
+def _layout(metas: list, huff: list, tri: dict, kind: str, tb=None) -> DecodePlan:
+    """The rows of members ``huff``, split at their triples ``tri[i]``,
+    with the reference's caps: a TB row holds at most its member's
+    recorded row maximum, or else the largest of any member, or else
+    ``isize + 2``; a TS row its recorded count; a member's final row
+    ``isize`` minus its last split's output offset plus 2, and with
+    splits at most the largest row count plus 4.  No row holds more than
+    its bit length plus 2, as each command takes a bit at least, so an
+    ``isize`` the trailer overstates sizes no buffer.  Raises _Serial for
+    split bits outside a member's body, a row longer than
+    ``inflate_cu.MAX_ROW_BITS``, and a member whose recorded row maximum
+    is the TB field's saturated ``TB_CMDS_CAP``."""
+    # the largest command count between consecutive splits: the TB
+    # field's row maxima, or the TS triples' command steps
+    stride_cap = 0
+    if kind == "tb":
+        stride_cap = max(tb["max_cmds"][i] for i in huff)
+    elif kind == "ts":
+        stride_cap = max((b[1] - a[1] for i in huff
+                          for a, b in zip([(0, 0, 0)] + tri[i], tri[i])), default=0)
+    rows, caps, counts = [], [], []
     for i in huff:
-        start = metas[i][0][3]
-        end = metas[i][1].size * 8
-        bits = [start] + [t[0] for t in splits[i] if t[0] > 0]
-        if any(b <= a for a, b in zip(bits, bits[1:])) or bits[-1] >= end:
-            raise _Serial("corrupt split index")
-        if max(b - a for a, b in zip(bits, bits[1:] + [end])) > inflate_cu.MAX_ROW_BITS:
+        start, end, isize = metas[i][0][3], metas[i][1].size * 8, metas[i][3]
+        bits = [start] + [t[0] for t in tri[i]]
+        if bits[-1] >= end:
+            raise _Serial("split bits past a member's body")
+        spans = [b - a for a, b in zip(bits, bits[1:] + [end])]
+        if max(spans) > inflate_cu.MAX_ROW_BITS:
             raise _Serial("row longer than the decode kernel's bit range")
+        cmd = [0] + [t[1] for t in tri[i]]
+        count = [b - a for a, b in zip(cmd, cmd[1:])] if kind == "ts" else [-1] * len(tri[i])
+        interior = ([tb["max_cmds"][i] or stride_cap or isize + 2] * len(tri[i])
+                    if kind == "tb" else count)
+        final = isize - (tri[i][-1][2] if tri[i] else 0) + 2  # commands <= bytes + EOB
+        if stride_cap:
+            final = min(final, stride_cap + 4)
         rows.append(list(zip(bits, bits[1:] + [0])))
-    caps = [tb["max_cmds"][i] for i in huff]
-    if max(caps) >= TB_CMDS_CAP:
+        caps.append(max(min(c, n + 2) for c, n in zip(interior + [final], spans)))
+        counts.append(count + [-1])
+    if kind == "tb" and stride_cap >= TB_CMDS_CAP:
         # the writer saturates the field: the real count is unknown
         raise _Serial("row command count over the index's u16 cap")
-    return metas, huff, rows, max(caps) + 4
+    return DecodePlan(metas, huff, rows, caps, counts)
+
+
+def _groups(plan: DecodePlan) -> list:
+    """Consecutive (first, end) ranges of ``plan.huff`` whose command
+    buffer, rows x (largest cap + 4) x 4 bytes, stays under
+    ``GROUP_BYTES``; a member past it alone is a group of its own."""
+    groups, lo, nrows, cap = [], 0, 0, 0
+    for k, (rows, c) in enumerate(zip(plan.rows, plan.caps)):
+        if k > lo and (nrows + len(rows)) * (max(cap, c) + 4) * 4 > GROUP_BYTES:
+            groups.append((lo, k))
+            lo, nrows, cap = k, 0, 0
+        nrows += len(rows)
+        cap = max(cap, c)
+    return groups + [(lo, len(plan.rows))] if plan.rows else []
 
 
 def sharded_gzip_decompress(archive, *, expand: str = "auto", device="cuda") -> bytes:
     """Member-parallel decode of an indexed archive on ``device``; stored
     members resolve on the host.
 
-    Every split row of every member decodes on ``device`` and the rows'
-    commands are compacted there.  ``expand`` says where they become
-    bytes, with the reference's meaning and default: ``"device"`` expands
-    them and checks each member's CRC-32 on ``device``
-    (``inflate.expand_commands``, ``crc32_rows``); any other value,
-    ``"auto"`` included, fetches the compacted stream once and expands
-    each member on the host (``native.expand_cmds``), checked by length
-    and ``native.crc32``.  The reference's "auto" takes the host route
-    where its native library loads; the port's library builds or raises,
-    so "auto" always takes it.
+    Every row of every member decodes on ``device``, in groups of
+    members (:data:`GROUP_BYTES`), and each group's commands are
+    compacted there.  ``expand`` says where they become bytes, with the
+    reference's meaning and default: ``"device"`` expands them and checks
+    each member's CRC-32 on ``device`` (``inflate.expand_commands``,
+    ``crc32_rows``); any other value, ``"auto"`` included, fetches each
+    group's compacted stream once and expands each member on the host
+    (``native.expand_cmds``), checked by length and ``native.crc32``.  The
+    reference's "auto" takes the host route where its native library
+    loads; the port's library builds or raises, so "auto" always takes it.
 
-    Archives the device path does not cover, as :func:`decode_plan`
-    finds before anything is staged, take the serial host route, counted
-    in ``serial_fallbacks``; malformed input there raises the reference's
-    ``gz.MalformedError`` or ``de.MalformedError`` and message.
-    A row the decode rejects, or a member whose CRC-32 or length does not
-    match, raises ``de.MalformedError`` on either ``expand`` route.  Where
-    the reference falls back to a serial decode on those, the port does
-    not."""
+    Archives the device path does not cover, as :func:`decode_plan` finds
+    before anything is staged, take the serial host route as the
+    reference's do, counted in ``serial_fallbacks``; malformed input
+    there raises the reference's ``gz.MalformedError`` or
+    ``de.MalformedError`` and message.  Members the card rejects after
+    the decode (a row not ok or off its recorded TS count, a length or
+    CRC-32 that does not match) decode again on ``device``, each as one
+    row to its end-of-block, counted in ``card_retries``; where the
+    reference decodes the archive again serially, this gives its bytes.
+    Members still rejected then, and stored members that do not match,
+    raise the serial route's error, the reference's, or
+    :class:`CardFault` where that route decodes the archive."""
     dev = de._resolve_device(device)
     buf = de._np_u8(archive)
     try:
@@ -631,83 +749,122 @@ def sharded_gzip_decompress(archive, *, expand: str = "auto", device="cuda") -> 
 
 
 def _decode_on_device(buf: np.ndarray, dev: torch.device, expand: str) -> bytes:
-    metas, huff, rows, max_cmds = decode_plan(buf)
-    results: list = [None] * len(metas)
-    if huff:
-        st = inflate_cu.stage([metas[i][1] for i in huff],
-                              [metas[i][0][1] for i in huff],
-                              [metas[i][0][2] for i in huff], rows, dev)
-        cmds, ok, _ = inflate_cu.decode(st["words"], st["tabs"], st["row_ptr"],
-                                        st["start"], st["stop"], st["nbits"],
-                                        st["blocks"], max_cmds)
-        counts = torch.diff(st["row_ptr"].to(torch.int64))
-        if not bool((ok & torch.repeat_interleave(st["tab_ok"], counts)).all()):
-            raise de.MalformedError("invalid stream")
-        # each member's rows are consecutive: its command stream is the
-        # concatenation of its rows' spans
-        ncmds = inflate.slot_counts_bits(cmds >> 26, st["stop"])
-        row_starts = torch.cat([ncmds.new_zeros(1), torch.cumsum(ncmds, 0)])
-        total = int(row_starts[-1])
-        flat = inflate.compact_commands(cmds, ncmds, lz77._ceil_pow2(total))
-        bounds = row_starts[st["row_ptr"].to(torch.int64)]
-        isizes = [metas[i][3] for i in huff]
-        crcs = [metas[i][2] for i in huff]
-        if expand != "device":
-            members = _expand_native(flat[:total], bounds, isizes, crcs)
-        else:
-            members = _expand_device(flat, bounds, isizes, crcs)
-        for i, out in zip(huff, members):
-            results[i] = out
-    for i, (p, _, crc, isize) in enumerate(metas):
+    plan = decode_plan(buf)
+    results: list = [None] * len(plan.metas)
+    reasons = _decode_groups(plan, dev, expand, results)
+    again = [i for i in plan.huff if results[i] is None]
+    if again:
+        card_retries[reasons[0]] += 1
+        # one row to end-of-block depends on no split the index records
+        fit = [i for i in again
+               if 0 < plan.metas[i][1].size * 8 - plan.metas[i][0][3] <= inflate_cu.MAX_ROW_BITS]
+        if fit:
+            whole = _layout(plan.metas, fit, {i: [] for i in fit}, "whole")
+            _decode_groups(whole, dev, expand, results)
+    for i, (p, _, crc, isize) in enumerate(plan.metas):
         if p[0] == "stored":
-            if len(p[1]) != isize or checksum.crc32(p[1], device=dev) != crc:
-                raise de.MalformedError("member length or CRC-32 mismatch")
-            results[i] = p[1]
+            if len(p[1]) == isize and checksum.crc32(p[1], device=dev) == crc:
+                results[i] = p[1]
+            else:
+                reasons.append("member length or CRC-32 mismatch")
+    if any(r is None for r in results):
+        _card_reject(buf, reasons[0])
     return b"".join(results)
+
+
+def _decode_groups(plan: DecodePlan, dev: torch.device, expand: str, results: list) -> list:
+    """Decode ``plan``'s members group by group into ``results`` (None
+    for a member the card rejects); returns the rejects' reasons."""
+    reasons = []
+    for lo, hi in _groups(plan):
+        outs, reason = _decode_group(plan, lo, hi, dev, expand)
+        for i, out in zip(plan.huff[lo:hi], outs):
+            results[i] = out
+        if reason:
+            reasons.append(reason)
+    return reasons
+
+
+def _decode_group(plan: DecodePlan, lo: int, hi: int, dev: torch.device,
+                  expand: str) -> tuple:
+    """Decode members ``plan.huff[lo:hi]`` in one launch and expand them by
+    ``expand``.  Returns (their bytes, None for a member with a row not
+    ok or off its recorded TS count, or whose length or CRC-32 does not
+    match; the reason of such rejects, or None)."""
+    huff, metas = plan.huff[lo:hi], plan.metas
+    st = inflate_cu.stage([metas[i][1] for i in huff], [metas[i][0][1] for i in huff],
+                          [metas[i][0][2] for i in huff], plan.rows[lo:hi], dev)
+    cmds, ok, ncmds = inflate_cu.decode(st["words"], st["tabs"], st["row_ptr"],
+                                        st["start"], st["stop"], st["nbits"],
+                                        st["blocks"], plan.max_cmds(lo, hi))
+    want = transfer.upload(np.array([c for r in plan.counts[lo:hi] for c in r], np.int32), dev)
+    counts = torch.diff(st["row_ptr"].to(torch.int64))
+    good = ok & torch.repeat_interleave(st["tab_ok"], counts) & ((want < 0) | (ncmds == want))
+    rejected = not bool(good.all())
+    # each member's rows are consecutive: its command stream is the
+    # concatenation of its rows' spans; a rejected row's are dropped
+    spans = torch.where(good, inflate.slot_counts_bits(cmds >> 26, st["stop"]), 0)
+    row_starts = torch.cat([spans.new_zeros(1), torch.cumsum(spans, 0)])
+    total = int(row_starts[-1])
+    flat = inflate.compact_commands(cmds, spans, lz77._ceil_pow2(total))
+    bounds = row_starts[st["row_ptr"].to(torch.int64)]
+    isizes = [metas[i][3] for i in huff]
+    crcs = [metas[i][2] for i in huff]
+    if expand != "device":
+        outs = _expand_native(flat[:total], bounds, isizes, crcs)
+    else:
+        outs = _expand_device(flat, bounds, isizes, crcs)
+    if rejected:
+        member = np.repeat(np.arange(len(huff)), [len(r) for r in plan.rows[lo:hi]])
+        for k in set(member[~good.cpu().numpy()].tolist()):
+            outs[k] = None
+        return outs, "card decode rejected a row"
+    return outs, None if all(o is not None for o in outs) else "member length or CRC-32 mismatch"
 
 
 def _expand_native(flat: torch.Tensor, bounds: torch.Tensor, isizes: list,
                    crcs: list) -> list:
     """The host route: the compacted commands fetched once, each member's
     span ``flat[bounds[k]:bounds[k + 1]]`` expanded by the native library
-    into an ``isize + 4`` buffer and checked by length and CRC-32."""
+    and checked by length and CRC-32; None for a member that fails."""
     flat = flat.cpu().numpy().astype(np.uint32)
     bounds = bounds.cpu().numpy()
     out = []
     for k, (isize, crc) in enumerate(zip(isizes, crcs)):
-        buf = np.empty(isize + 4, np.uint8)
+        span = np.ascontiguousarray(flat[bounds[k]:bounds[k + 1]])
+        # a command gives at most MAX_MATCH bytes: an overstated isize
+        # sizes no larger buffer
+        buf = np.empty(min(isize, lz77.MAX_MATCH * span.size) + 4, np.uint8)
         try:
-            produced = native.expand_cmds(
-                np.ascontiguousarray(flat[bounds[k]:bounds[k + 1]]), buf)
-        except ValueError as e:
-            raise de.MalformedError("member length or CRC-32 mismatch") from e
-        if produced != isize or native.crc32(buf[:isize]) != crc:
-            raise de.MalformedError("member length or CRC-32 mismatch")
-        out.append(buf[:isize].tobytes())
+            produced = native.expand_cmds(span, buf)
+        except ValueError:
+            produced = -1
+        good = produced == isize and native.crc32(buf[:isize]) == crc
+        out.append(buf[:isize].tobytes() if good else None)
     return out
 
 
 def _expand_device(flat: torch.Tensor, bounds: torch.Tensor, isizes: list,
                    crcs: list) -> list:
     """The device route: the members' command streams regrouped into one
-    row each, expanded and CRC-checked on their device."""
+    row each, expanded and CRC-checked on their device; None for a member
+    whose length or CRC-32 does not match."""
     dev = flat.device
     mstart, mtotal = bounds[:-1], torch.diff(bounds)
     mc = lz77._ceil_pow2(int(mtotal.max()))
     j = torch.arange(mc, device=dev)[None, :]
     idx = torch.clamp(mstart[:, None] + j, max=flat.shape[0] - 1)
     mem = torch.where(j < mtotal[:, None], flat[idx], inflate.END)
-    payload, lengths = inflate.expand_commands(
-        mem >> 26, mem & 0x3FF, (mem >> 10) & 0xFFFF, lz77._ceil_pow2(max(isizes)))
+    # a command gives at most MAX_MATCH bytes: an overstated isize sizes
+    # no wider rows
+    width = lz77._ceil_pow2(min(max(isizes), lz77.MAX_MATCH * mc))
+    payload, lengths = inflate.expand_commands(mem >> 26, mem & 0x3FF, (mem >> 10) & 0xFFFF,
+                                               width)
     got = checksum.crc32_batch_device(payload, lengths)
     lengths = lengths.cpu().numpy()
     payload = payload.cpu().numpy()
-    out = []
-    for k, (isize, crc) in enumerate(zip(isizes, crcs)):
-        if int(lengths[k]) != isize or int(got[k]) != crc:
-            raise de.MalformedError("member length or CRC-32 mismatch")
-        out.append(payload[k, :isize].tobytes())
-    return out
+    return [payload[k, :isize].tobytes() if int(lengths[k]) == isize and int(got[k]) == crc
+            else None for k, (isize, crc) in enumerate(zip(isizes, crcs))]
 
 
 # ---------------------------------------------------------------------------

@@ -194,7 +194,11 @@ def main() -> int:
     hist_args = (res6["on_path"], res6["is_match"], res6["length"], res6["dist"], lit)
 
     archive = sharded.sharded_gzip_compress(data, 6, device="cuda")
-    metas, huff, rows, max_cmds = sharded.decode_plan(np.frombuffer(archive, np.uint8))
+    plan = sharded.decode_plan(np.frombuffer(archive, np.uint8))
+    if hasattr(plan, "caps"):  # a DecodePlan
+        metas, huff, rows, max_cmds = plan.metas, plan.huff, plan.rows, plan.max_cmds()
+    else:  # (metas, huff, rows, max_cmds) in older checkouts
+        metas, huff, rows, max_cmds = plan
     st = inflate_cu.stage([metas[i][1] for i in huff], [metas[i][0][1] for i in huff],
                           [metas[i][0][2] for i in huff], rows, dev)
     dec_args = (st["words"], st["tabs"], st["row_ptr"], st["start"], st["stop"])

@@ -33,7 +33,11 @@ and 1 against the reference's digest; every host read of the pipelined
 and windowed writers, as received, equal to a blocking re-read; both
 writers under ``torch.cuda.set_sync_debug_mode("error")``; both
 ``expand`` routes of the sharded decode, with their launches, and a
-flipped CRC-32 rejected on each.
+flipped CRC-32 taking the counted serial route (the reference's error) on
+each.  The 8 MiB corpus's archives with the legacy TS index and with the
+index cut to member sizes decoded on the card on both routes in one
+launch, in 9 launches with the group bound lowered, and the decode kernel
+on whole-member rows against its plain version.
 """
 
 import functools
@@ -51,6 +55,7 @@ from decompress_tpu_torch.ops import (bitpack, checksum, cost_cu, crc_cu, hist_c
                                       inflate_cu, lz77, pack_cu, parse_cu, pipeline,
                                       transfer)
 from decompress_tpu_torch.parallel import sharded
+from torch_archives import sizes_only
 
 pytestmark = pytest.mark.cuda
 CORPUS = pathlib.Path(__file__).parent / "corpus"
@@ -239,7 +244,8 @@ def test_gzip_on_card_matches_cpu(dev, level):
 def _archive_plan(data, member_size):
     buf = np.frombuffer(sharded.sharded_gzip_compress(
         data, 6, member_size=member_size, device="cpu"), np.uint8)
-    return sharded.decode_plan(buf)
+    plan = sharded.decode_plan(buf)
+    return plan.metas, plan.huff, plan.rows, plan.max_cmds()
 
 
 def _archive_rows(dev, data, member_size, flip=None, rows_of=None):
@@ -367,18 +373,25 @@ def test_sharded_round_trip_on_card(dev, expand):
     assert _build.LAUNCHES["decode"] == 1
     # a CRC launch per stored member on both routes, and one for all the
     # decoded members on the device route
-    metas = sharded.decode_plan(np.frombuffer(bytes(arch), np.uint8))[0]
+    metas = sharded.decode_plan(np.frombuffer(bytes(arch), np.uint8)).metas
     stored = sum(p[0] == "stored" for p, *_ in metas)
     assert _build.LAUNCHES["crc32_rows"] == stored + (expand == "device")
 
 
 def test_decode_routes_reject_a_flipped_crc_on_card(dev):
+    """A CRC-32 mismatch after the card decode, on both expand routes:
+    the member decodes again whole on the card, still mismatches, and the
+    counted serial route raises the reference's error."""
     x = (CORPUS / "book1").read_bytes()[:200_000]
     arch = bytearray(sharded.sharded_gzip_compress(x, member_size=65536, device="cuda"))
     arch[-5] ^= 1  # the last member's CRC-32
     for expand in ("auto", "device"):
-        with pytest.raises(de.MalformedError, match="CRC-32"):
+        sharded.serial_fallbacks.clear()
+        sharded.card_retries.clear()
+        with pytest.raises(gz.MalformedError, match="^invalid checksum$"):
             sharded.sharded_gzip_decompress(bytes(arch), expand=expand, device="cuda")
+        counted = {"member length or CRC-32 mismatch": 1}
+        assert sharded.serial_fallbacks == counted and sharded.card_retries == counted
 
 
 def _corpus_8mib() -> bytes:
@@ -390,6 +403,72 @@ def _corpus_8mib() -> bytes:
 
 #: the reference's default-level gzip of _corpus_8mib() (chip_smoke.EXPECT)
 LEVEL6_EXPECT = (2854697, "eafff4741db8b10690dc785fcd9e4cbcf5d6dc0eb07cba3c199fe36e754842f4")
+
+
+@functools.lru_cache(maxsize=1)
+def _index_archives() -> dict:
+    """The level-6 archive of the 8 MiB corpus with the legacy TS index
+    (SPLIT_BITS 0: a triple every 2,048 commands) and with its TB index
+    cut to the member sizes."""
+    x = _corpus_8mib()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sharded, "SPLIT_BITS", 0)
+        ts = sharded.sharded_gzip_compress(x, device="cuda")
+    return {"ts": ts, "sizes_only": sizes_only(sharded.sharded_gzip_compress(x, device="cuda"))}
+
+
+@pytest.mark.parametrize("expand", ["auto", "device"])
+@pytest.mark.parametrize("name", ["ts", "sizes_only"])
+def test_ts_and_sizes_only_archives_on_card(dev, name, expand):
+    """Archives with no bit-stride index decode on the card in one
+    launch, to the corpus, with no serial fallback."""
+    arch = _index_archives()[name]
+    buf = np.frombuffer(arch, np.uint8)
+    splits, tb = sharded._read_index_ex(buf)[1:]
+    assert tb is None and (splits is None) == (name == "sizes_only")
+    plan = sharded.decode_plan(buf)
+    assert (max(map(len, plan.rows)) > 1) == (name == "ts")
+    sharded.serial_fallbacks.clear()
+    _build.LAUNCHES.clear()
+    assert sharded.sharded_gzip_decompress(arch, expand=expand, device="cuda") == _corpus_8mib()
+    assert not sharded.serial_fallbacks
+    assert _build.LAUNCHES["decode"] == len(sharded._groups(plan)) == 1
+    assert _build.LAUNCHES["crc32_rows"] == (expand == "device")
+
+
+def test_group_staging_on_card(dev, monkeypatch):
+    """With the group bound lowered to 8 whole-member rows, the sizes-only
+    archive decodes in 9 launches to the same bytes on both routes."""
+    arch = _index_archives()["sizes_only"]
+    plan = sharded.decode_plan(np.frombuffer(arch, np.uint8))
+    monkeypatch.setattr(sharded, "GROUP_BYTES", 8 * (max(plan.caps) + 4) * 4)
+    groups = sharded._groups(plan)
+    assert len(groups) == -(-len(plan.huff) // 8)
+    for expand in ("auto", "device"):
+        sharded.serial_fallbacks.clear()
+        _build.LAUNCHES.clear()
+        assert sharded.sharded_gzip_decompress(arch, expand=expand, device="cuda") == \
+            _corpus_8mib()
+        assert _build.LAUNCHES["decode"] == len(groups) and not sharded.serial_fallbacks
+
+
+def test_decode_kernel_whole_member_rows(dev):
+    """The decode kernel == its plain version on whole-member rows (one
+    row a member, to the end-of-block, ~360,000 bits) of the corpus's
+    first 6 members at the cap isize + 2 (the plain loop takes ~50 s);
+    with the cap one below a member's command count the kernel rejects
+    that row (the plain version is held there on split rows)."""
+    plan = sharded.decode_plan(np.frombuffer(_index_archives()["sizes_only"], np.uint8))
+    huff = plan.huff[:6]
+    st = inflate_cu.stage([plan.metas[i][1] for i in huff], [plan.metas[i][0][1] for i in huff],
+                          [plan.metas[i][0][2] for i in huff], plan.rows[:6], dev)
+    cmds, ok, ncmds = _decode_both(st, plan.max_cmds(0, 6))
+    assert ok.all() and int(ncmds.min()) > 10_000
+    cap = int(ncmds[0]) - 1
+    _, ok_cap, n_cap = inflate_cu.decode(st["words"], st["tabs"], st["row_ptr"], st["start"],
+                                         st["stop"], st["nbits"], st["blocks"], cap)
+    assert ok_cap.tolist() == (ncmds <= cap).tolist() and not bool(ok_cap[0])
+    assert torch.equal(n_cap, ncmds.clamp(max=cap))
 
 
 def test_pipeline_depths_match_reference_digest(dev, monkeypatch):

@@ -180,7 +180,8 @@ def _fields(cmds):
 
 def test_decode_plain_matches_reference_kernel(archive):
     payload, buf = archive
-    metas, huff, rows, max_cmds = sharded.decode_plan(buf)
+    plan = sharded.decode_plan(buf)
+    metas, huff, rows, max_cmds = plan.metas, plan.huff, plan.rows, plan.max_cmds()
     assert len(huff) >= 3 and sum(len(r) for r in rows) > len(huff)
     st, (cmds, ok, ncmds) = _port_decode(metas, huff, rows, max_cmds)
     kinds, values, dists, ok_ref = _reference_decode(metas, huff, rows, max_cmds)
@@ -206,7 +207,8 @@ def test_decode_plain_matches_reference_kernel(archive):
 
 def test_compaction_and_expansion_match_reference(archive):
     payload, buf = archive
-    metas, huff, rows, max_cmds = sharded.decode_plan(buf)
+    plan = sharded.decode_plan(buf)
+    metas, huff, rows, max_cmds = plan.metas, plan.huff, plan.rows, plan.max_cmds()
     st, (cmds, _, _) = _port_decode(metas, huff, rows, max_cmds)
     kinds = cmds >> 26
     with_nop = kinds.clone()

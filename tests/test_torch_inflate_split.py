@@ -15,8 +15,8 @@ below follows the same lane ranges and rules, lanes as a tensor axis and
 rows vectorised in torch, with ``decode_plain``'s peek and table-lookup
 arithmetic, so the synchronisation logic is checked without the card:
 its (cmds, ok, ncmds) must equal ``decode_plain``'s exactly on archive
-rows, a fixed-Huffman member, a flipped end-of-block, flipped bits inside
-interior rows, truncation at ``max_cmds``, rows of 1–100 bits and rows
+rows (bit-stride rows, whole-member rows and TS rows), a fixed-Huffman
+member, a flipped end-of-block, flipped bits inside interior rows, truncation at ``max_cmds``, rows of 1–100 bits and rows
 starting before and past the body, and every row must converge in at
 most 32 rounds.
 """
@@ -186,12 +186,15 @@ def _check(st, max_cmds):
     return want, rounds
 
 
-def _archive(payload, member_size, split_bits, monkeypatch):
-    """Decode plan of the port's level-6 sharded archive of payload."""
+def _archive(payload, member_size, split_bits, monkeypatch, split_stride=sharded.SPLIT_STRIDE):
+    """(metas, huff, rows, max_cmds) of the decode plan of the port's
+    level-6 sharded archive of payload, and the plan."""
     monkeypatch.setattr(sharded, "SPLIT_BITS", split_bits)
+    monkeypatch.setattr(sharded, "SPLIT_STRIDE", split_stride)
     buf = np.frombuffer(sharded.sharded_gzip_compress(payload, 6, member_size=member_size,
                                                       device="cpu"), np.uint8)
-    return sharded.decode_plan(buf)
+    plan = sharded.decode_plan(buf)
+    return (plan.metas, plan.huff, plan.rows, plan.max_cmds()), plan
 
 
 def _stage(metas, huff, rows, bodies=None):
@@ -203,15 +206,17 @@ def _stage(metas, huff, rows, bodies=None):
 @pytest.fixture(scope="module")
 def archives():
     """The archive of ``tests/test_torch_inflate.py`` (members of 2,048
-    bytes, splits every 1,024 bits) and one of the book1 text in members
-    of 4,096 bytes at the production split stride (8,192 bits)."""
+    bytes, splits every 1,024 bits), one of the book1 text in members
+    of 4,096 bytes at the production split stride (8,192 bits), and the
+    same text with the legacy TS index every 256 commands."""
     rng = np.random.default_rng(5)
     payload = (b"the decode kernel must agree with the reference's " * 120
                + rng.integers(0, 256, 3000, np.uint8).tobytes() + b"\x00" * 3000)
     book = (CORPUS / "book1").read_bytes()[:16384]
     with pytest.MonkeyPatch.context() as mp:
-        return {"short_rows": _archive(payload, 2048, 1024, mp),
-                "production_rows": _archive(book, 4096, 8192, mp)}
+        return {"short_rows": _archive(payload, 2048, 1024, mp)[0],
+                "production_rows": _archive(book, 4096, 8192, mp)[0],
+                "ts_rows": _archive(book, 4096, 0, mp, split_stride=256)}
 
 
 @pytest.mark.parametrize("name", ["short_rows", "production_rows"])
@@ -220,6 +225,26 @@ def test_split_model_on_archive_rows(archives, name):
     (_, ok, _), rounds = _check(_stage(metas, huff, rows), max_cmds)
     assert ok.all() and len(rows[0]) >= 1
     assert int(rounds.max()) >= 1  # lanes started off the codeword boundaries
+
+
+@pytest.mark.parametrize("shape", ["whole_member", "ts"])
+def test_split_model_on_whole_member_and_ts_rows(archives, shape):
+    """The rows of archives with no bit-stride index: one row a member from
+    its first symbol to the end-of-block (a sizes-only or corrupt index,
+    ~13,000 bits a row at the cap isize + 2), or TS rows between the
+    triples' bit offsets, each holding its recorded command count."""
+    if shape == "whole_member":
+        metas, huff, rows, _ = archives["production_rows"]
+        (_, ok, ncmds), _ = _check(_stage(metas, huff, [[(r[0][0], 0)] for r in rows]),
+                                   max(metas[i][3] for i in huff) + 6)
+        assert ok.all() and int(ncmds.min()) > 1000
+        return
+    (metas, huff, rows, max_cmds), plan = archives["ts_rows"]
+    assert any(len(r) > 2 for r in rows)
+    (_, ok, ncmds), _ = _check(_stage(metas, huff, rows), max_cmds)
+    want = [c for r in plan.counts for c in r]
+    assert ok.all() and [n for n, c in zip(ncmds.tolist(), want) if c >= 0] == [
+        c for c in want if c >= 0]
 
 
 def _flip(body, bits):

@@ -11,13 +11,25 @@ plain PyTorch versions of the kernels on the CPU) against the reference
   arrays (bit and command strides) equal the reference's;
 * ``_read_index_ex`` reads both index kinds as the reference does;
 * ``sharded_gzip_decompress`` restores the port's and the reference's
-  archives with the serial route poisoned; an unindexed archive, a
-  legacy command-stride index, split bits past the members' bodies and a
-  member with a reserved block type take the serial route and are counted
-  in ``serial_fallbacks``; a row the decode rejects and a corrupt member
-  CRC raise without it; both ``expand`` routes (the default host
-  expansion and ``expand="device"``) and an unknown value restore the
-  archives, as the reference's decode with the same ``expand`` does;
+  archives with the serial route poisoned; an unindexed archive, split
+  bits past the members' bodies and a member with a reserved block type
+  take the serial route and are counted in ``serial_fallbacks``; both
+  ``expand`` routes (the default host expansion and ``expand="device"``)
+  and an unknown value restore the archives, as the reference's decode
+  with the same ``expand`` does;
+* the archives the reference decodes on its device decode through the
+  decode kernel's wrapper too, with no serial route: the legacy TS index
+  (command-stride triples, at the default stride and at 256), an index
+  cut to the member sizes, TS indexes with a bit offset that does not
+  increase or an output offset past its member, and TB row maxima all
+  zeroed; each member's compacted command stream equals what the
+  reference's lockstep ``decode_symbols`` gives for its rows, NOP slots
+  dropped; with the group bound lowered, members decode in consecutive
+  groups, one launch each;
+* after the card decode, a CRC-32 flipped in the first, the last or a
+  stored member, a flipped body byte and a TS command count off by one
+  take the counted serial route and return the reference's outcome (its
+  bytes, or its exception class, module and message);
 * a 2^19-byte member whose final split row holds more than 65,535
   commands (the TB index's u16 row maximum saturates): byte-identical to
   the reference's archive and decoded by the counted serial route, as
@@ -43,14 +55,17 @@ import pytest
 import torch
 
 from decompress_tpu import de as ref_de
+from decompress_tpu import gz as ref_gz
 from decompress_tpu import native as ref_native
 from decompress_tpu.ops import bitpack as ref_bitpack
+from decompress_tpu.ops import inflate as ref_inflate
 from decompress_tpu.ops import lz77 as ref_lz77
 from decompress_tpu.parallel import sharded as ref
 from decompress_tpu_torch import de, gz, zl
 from decompress_tpu_torch.ops import bitpack, inflate_cu, lz77
 from decompress_tpu_torch.parallel import sharded
 from ref_host import ref_host  # noqa: F401
+from torch_archives import sizes_only
 from torch_threads import one_torch_thread  # noqa: F401
 
 MEMBER = 4096
@@ -67,18 +82,20 @@ PAYLOAD = _payload()
 _ARCHIVES = {}
 
 
-def _pair(level, split_bits=ref.SPLIT_BITS, shared_tree=False, **kw):
-    """(port archive, reference archive) with the split stride patched in
-    both modules, cached per arguments."""
-    key = (level, split_bits, shared_tree, tuple(sorted(kw.items())))
+def _pair(level, split_bits=ref.SPLIT_BITS, shared_tree=False, split_stride=ref.SPLIT_STRIDE,
+          payload=PAYLOAD, **kw):
+    """(port archive, reference archive) of ``payload`` with the split
+    strides patched in both modules, cached per arguments."""
+    key = (level, split_bits, shared_tree, split_stride, payload, tuple(sorted(kw.items())))
     if key not in _ARCHIVES:
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(ref, "SPLIT_BITS", split_bits)
-            mp.setattr(sharded, "SPLIT_BITS", split_bits)
+            for mod in (ref, sharded):
+                mp.setattr(mod, "SPLIT_BITS", split_bits)
+                mp.setattr(mod, "SPLIT_STRIDE", split_stride)
             _ARCHIVES[key] = (
-                sharded.sharded_gzip_compress(PAYLOAD, level, member_size=MEMBER,
+                sharded.sharded_gzip_compress(payload, level, member_size=MEMBER,
                                               shared_tree=shared_tree, device="cpu", **kw),
-                ref.sharded_gzip_compress(PAYLOAD, level, member_size=MEMBER,
+                ref.sharded_gzip_compress(payload, level, member_size=MEMBER,
                                           shared_tree=shared_tree, **kw))
     return _ARCHIVES[key]
 
@@ -188,9 +205,13 @@ def test_read_index_matches_reference():
 
 @pytest.fixture
 def no_serial(monkeypatch):
+    """The serial route fails the test; no member is decoded again."""
     sharded.serial_fallbacks.clear()
+    sharded.card_retries.clear()
     monkeypatch.setattr(sharded, "_serial", lambda buf, reason: pytest.fail(
         f"serial route taken: {reason}"))
+    yield
+    assert not sharded.card_retries
 
 
 #: the decode's expand= values: the default and its host route, the device
@@ -245,12 +266,10 @@ def test_serial_route_is_counted(ref_host):
     """What the host finds before staging takes the serial route, counted."""
     sharded.serial_fallbacks.clear()
     unindexed = _pair(4, index=False, mtime=7)[0]
-    ts = _pair(6, split_bits=0)[1]
     # split bits far past every member's body
     far = _with_tb(stride=(1 << 31) - 1)
     for arch, reason in ((unindexed, "no member index"),
-                         (ts, "no bit-stride split index"),
-                         (far, "corrupt split index")):
+                         (far, "split bits past a member's body")):
         assert sharded.sharded_gzip_decompress(arch, device="cpu") == PAYLOAD
         assert sharded.serial_fallbacks[reason] == 1, dict(sharded.serial_fallbacks)
     # the first member's block type set to the reserved 3: the host
@@ -262,23 +281,304 @@ def test_serial_route_is_counted(ref_host):
     with pytest.raises(ref_de.MalformedError, match="^invalid kind of block$"):
         ref.sharded_gzip_decompress(bytes(bad_type))
     assert sharded.serial_fallbacks["member not device-decodable"] == 1
-    assert sum(sharded.serial_fallbacks.values()) == 4
+    assert sum(sharded.serial_fallbacks.values()) == 3
+
+
+def _edit_ts(arch: bytes, member: int, k: int, field: int, fn) -> bytes:
+    """The TS archive with field ``field`` (0 bit offset, 1 command index,
+    2 output offset) of member ``member``'s k-th triple replaced by
+    fn(old value)."""
+    a = bytearray(arch)
+    ts = 16 + int.from_bytes(a[14:16], "little")  # after the TZ subfield
+    assert a[ts: ts + 2] == b"TS"
+    j = ts + 5  # past the id, the length and N_SPLITS
+    for _ in range(member):
+        j += 1 + 12 * a[j]
+    assert k < a[j]
+    o = j + 1 + 12 * k + 4 * field
+    a[o: o + 4] = fn(int.from_bytes(a[o: o + 4], "little")).to_bytes(4, "little")
+    return bytes(a)
+
+
+def _card_archive(name: str) -> bytes:
+    """Archives the card decodes as the reference's device does: the TS
+    index at the default command stride (one triple) and at 256 (29
+    triples), no split subfield, a TS index whose second triple's bit
+    offset does not increase, one whose output offset passes its member,
+    and the TB index with every row maximum zeroed."""
+    ts256 = _pair(6, split_bits=0, split_stride=256)[0]
+    return {"ts": lambda: _pair(6, split_bits=0)[0],
+            "ts_stride_256": lambda: ts256,
+            "sizes_only": lambda: sizes_only(_pair(6)[0]),
+            "ts_not_increasing": lambda: _edit_ts(ts256, 0, 1, 0, lambda b: 3),
+            "ts_out_past_isize": lambda: _edit_ts(ts256, 2, 0, 2, lambda o: 1 << 20),
+            "tb_zero_max": lambda: _with_tb(max_cmds=0)}[name]()
+
+
+CARD_ARCHIVES = ["ts", "ts_stride_256", "sizes_only", "ts_not_increasing",
+                 "ts_out_past_isize"]
 
 
 @pytest.mark.parametrize("expand", EXPAND[:2])
-def test_card_decode_failure_raises(no_serial, expand):
-    """After the decode has run, a rejected row or a CRC-32 mismatch
-    raises on either expand route and is never decoded again on the host."""
-    # a command capacity of 0 recorded for every member: no row finishes
-    with pytest.raises(de.MalformedError, match="invalid stream"):
-        sharded.sharded_gzip_decompress(_with_tb(max_cmds=0), expand=expand, device="cpu")
-    sizes = sharded._read_index_ex(np.frombuffer(_pair(6)[0], np.uint8))[0]
-    for end in (sizes[0], sum(sizes)):  # the first and the last member's CRC-32
-        bad_crc = bytearray(_pair(6)[0])
-        bad_crc[end - 5] ^= 1
-        with pytest.raises(de.MalformedError, match="CRC-32"):
-            sharded.sharded_gzip_decompress(bytes(bad_crc), expand=expand, device="cpu")
-    assert not sharded.serial_fallbacks
+@pytest.mark.parametrize("name", CARD_ARCHIVES)
+def test_every_index_decodes_on_card_route(no_serial, ref_native_off, monkeypatch, name,
+                                           expand):
+    """TS, sizes-only and corrupt split indexes decode through the decode
+    kernel's wrapper in one launch, to the reference's bytes: TS rows
+    between the triples' bit offsets, each checked against its count, the
+    others one row a member."""
+    arch = _card_archive(name)
+    buf = np.frombuffer(arch, np.uint8)
+    assert gzip.decompress(arch) == PAYLOAD
+    assert sharded._read_index_ex(buf) == ref._read_index_ex(buf)
+    plan = sharded.decode_plan(buf)
+    split = name in ("ts", "ts_stride_256")
+    assert any(len(r) > 1 for r in plan.rows) == split
+    assert any(c > 0 for r in plan.counts for c in r) == split
+    if name == "sizes_only":
+        assert sharded._read_index_ex(buf)[1] is None
+    if not split:  # isize + 2, and no more than the row's bits + 2
+        assert plan.caps == [min(plan.metas[i][3], plan.metas[i][1].size * 8 - r[0][0]) + 2
+                             for i, r in zip(plan.huff, plan.rows)]
+    launches = []
+    decode = inflate_cu.decode
+    monkeypatch.setattr(inflate_cu, "decode", lambda *a: (launches.append(1), decode(*a))[1])
+    assert sharded.sharded_gzip_decompress(arch, expand=expand, device="cpu") == PAYLOAD
+    assert len(launches) == 1 and not sharded.serial_fallbacks
+    assert ref.sharded_gzip_decompress(arch, expand=expand) == PAYLOAD
+
+
+@pytest.mark.parametrize("expand", EXPAND[:2])
+def test_zeroed_row_maxima_decode_on_card_route(no_serial, ref_native_off, expand):
+    """A TB index whose row maxima are all 0 is still valid gzip: its rows
+    take the cap isize + 2, at most their bits + 2, and decode on the card,
+    as the reference's do."""
+    arch = _card_archive("tb_zero_max")
+    plan = sharded.decode_plan(np.frombuffer(arch, np.uint8))
+    bits = [[(b or plan.metas[i][1].size * 8) - a for a, b in r]
+            for i, r in zip(plan.huff, plan.rows)]
+    assert plan.caps == [min(plan.metas[i][3], max(n)) + 2 for i, n in zip(plan.huff, bits)]
+    assert any(len(r) > 1 for r in plan.rows)
+    assert sharded.sharded_gzip_decompress(arch, expand=expand, device="cpu") == PAYLOAD
+    assert ref.sharded_gzip_decompress(arch, expand=expand) == PAYLOAD
+
+
+@pytest.mark.parametrize("name", CARD_ARCHIVES + ["tb_zero_max"])
+def test_command_streams_match_reference_decode_symbols(ref_native_off, monkeypatch, name):
+    """Each member's compacted command stream == what the reference's
+    lockstep decoder ``decode_symbols`` gives for its rows (count-stopped
+    for TS, to end-of-block for whole members), NOP slots dropped."""
+    arch = _card_archive(name)
+    got = []
+    expand_native = sharded._expand_native
+
+    def port_spy(flat, bounds, isizes, crcs):
+        b = bounds.tolist()
+        got.extend(flat[b[k]: b[k + 1]].tolist() for k in range(len(isizes)))
+        return expand_native(flat, bounds, isizes, crcs)
+
+    monkeypatch.setattr(sharded, "_expand_native", port_spy)
+    calls = []
+    decode_symbols = ref_inflate.decode_symbols
+
+    def ref_spy(*a, **kw):
+        calls.append((decode_symbols(*a, **kw), kw))
+        return calls[-1][0]
+
+    monkeypatch.setattr(ref_inflate, "decode_symbols", ref_spy)
+    assert sharded.sharded_gzip_decompress(arch, device="cpu") == PAYLOAD
+    assert ref.sharded_gzip_decompress(arch, expand="device") == PAYLOAD
+    [((kinds, values, dists, ok), kw)] = calls
+    members = np.asarray(kw["row_members"])
+    assert np.asarray(ok)[members < len(got)].all()  # the reference's device decode held
+    stops = kw["stop_counts"] if kw["stop_counts"] is not None else kw["stop_bits"]
+    stops = np.zeros(kinds.shape[0], np.int64) if stops is None else np.asarray(stops)
+    packed = ((np.asarray(kinds).astype(np.int64) << 26) | (np.asarray(dists) << 10)
+              | np.asarray(values))
+    members = np.asarray(kw["row_members"])
+    want = [[] for _ in got]
+    for row, m in enumerate(members):
+        if m >= len(got):
+            continue  # a padding row
+        slots = [int(s) for s in packed[row] if s >> 26 != 3]
+        end = next(j for j, s in enumerate(slots) if s >> 26 == 2)
+        want[m] += slots[: end + (stops[row] == 0)]
+    assert len(got) == 6 and got == want
+
+
+STORED_PAYLOAD = np.random.default_rng(13).integers(0, 256, MEMBER, np.uint8).tobytes() \
+    + PAYLOAD[:3000]
+
+
+def _flip(arch: bytes, at: int) -> bytes:
+    out = bytearray(arch)
+    out[at] ^= 1
+    return bytes(out)
+
+
+def _reject(case: str) -> tuple:
+    """(archive, serial reason) of an archive the card decode rejects:
+    the first or the last member's CRC-32, a byte in the middle of the
+    first member's body, a stored member's CRC-32 (the payload's first
+    member is random), or a TS triple's command index one too high."""
+    arch = _pair(6)[0]
+    sizes = sharded._read_index_ex(np.frombuffer(arch, np.uint8))[0]
+    mismatch = "member length or CRC-32 mismatch"
+    if case == "first_crc":
+        return _flip(arch, sizes[0] - 5), mismatch
+    if case == "last_crc":
+        return _flip(arch, sum(sizes) - 5), mismatch
+    if case == "body_byte":
+        body = gz._header_end(np.frombuffer(arch, np.uint8))
+        return _flip(arch, body + (sizes[0] - body - 8) // 2), mismatch
+    if case == "stored_crc":
+        stored = _pair(6, payload=STORED_PAYLOAD)[0]
+        metas = sharded.decode_plan(np.frombuffer(stored, np.uint8)).metas
+        assert metas[0][0][0] == "stored"
+        return _flip(stored, sharded._read_index_ex(np.frombuffer(stored, np.uint8))[0][0] - 5), \
+            mismatch
+    assert case == "ts_count"
+    ts256 = _pair(6, split_bits=0, split_stride=256)[0]
+    return _edit_ts(ts256, 0, 0, 1, lambda c: c + 1), "card decode rejected a row"
+
+
+def _outcome(fn, buf):
+    """("bytes", output) or the exception's module tail, class and message."""
+    try:
+        return "bytes", fn(buf)
+    except Exception as e:  # noqa: BLE001 -- the outcome is compared whatever it is
+        return type(e).__module__.rsplit(".", 1)[-1], type(e).__name__, str(e)
+
+
+@pytest.mark.parametrize("expand", EXPAND[:2])
+@pytest.mark.parametrize("case", ["first_crc", "last_crc", "body_byte", "stored_crc",
+                                  "ts_count"])
+def test_card_decode_failure_raises(ref_host, case, expand):
+    """After the card decode, a rejected row, a TS row off its recorded
+    count or a member whose length or CRC-32 does not match gives the
+    reference's outcome, as it decodes such an archive again serially:
+    the same bytes, or the same exception class, module and message.
+    The rejected members decode again on the card, each as one row to its
+    end-of-block, counted once under the reject's reason; what that
+    still rejects, and a stored member that does not match, raises the
+    serial route's error, counted once under the same reason."""
+    buf, reason = _reject(case)
+    sharded.serial_fallbacks.clear()
+    sharded.card_retries.clear()
+    got = _outcome(lambda b: sharded.sharded_gzip_decompress(b, expand=expand, device="cpu"),
+                   buf)
+    assert got == _outcome(lambda b: ref.sharded_gzip_decompress(b, expand=expand), buf)
+    assert sharded.card_retries == ({} if case == "stored_crc" else {reason: 1})
+    assert sharded.serial_fallbacks == ({} if case == "ts_count" else {reason: 1})
+    if case == "ts_count":
+        assert got == ("bytes", PAYLOAD)  # still valid gzip, decoded whole on the card
+    elif case != "body_byte":
+        assert got == ("gz", "MalformedError", "invalid checksum")
+
+
+def _faulty_decode(monkeypatch, fault: str | None = None, calls: int | None = None):
+    """inflate_cu.decode with ``fault`` planted in its first ``calls``
+    results (every result for None): "not_ok" rejects every row, "cmds"
+    flips the low bit of every row's first command (a literal's byte or a
+    copy's length), None plants nothing.  Returns the list of each call's
+    max_cmds."""
+    decode, seen = inflate_cu.decode, []
+
+    def faulty(*a):
+        cmds, ok, ncmds = decode(*a)
+        seen.append(a[7])
+        if fault and (calls is None or len(seen) <= calls):
+            if fault == "not_ok":
+                ok = torch.zeros_like(ok)
+            else:
+                cmds = cmds.clone()
+                cmds[:, 0] ^= 1
+        return cmds, ok, ncmds
+
+    monkeypatch.setattr(inflate_cu, "decode", faulty)
+    return seen
+
+
+@pytest.mark.parametrize("expand", EXPAND[:2])
+@pytest.mark.parametrize("fault", ["not_ok", "cmds"])
+def test_card_fault_on_good_archive_raises(monkeypatch, fault, expand):
+    """A decode that rejects rows or returns wrong commands on a good
+    archive, also on the members' second decode as whole-member rows, is
+    never replaced by the host decode: the serial route, asked for the
+    reference's error, decodes the archive, so CardFault is raised."""
+    seen = _faulty_decode(monkeypatch, fault, None)
+    reason = {"not_ok": "card decode rejected a row",
+              "cmds": "member length or CRC-32 mismatch"}[fault]
+    sharded.serial_fallbacks.clear()
+    sharded.card_retries.clear()
+    with pytest.raises(sharded.CardFault, match="the host decoder accepts the archive"):
+        sharded.sharded_gzip_decompress(_pair(6)[0], expand=expand, device="cpu")
+    assert sharded.card_retries == {reason: 1} and sharded.serial_fallbacks == {reason: 1}
+    assert len(seen) == 2
+
+
+@pytest.mark.parametrize("expand", EXPAND[:2])
+@pytest.mark.parametrize("fault", ["not_ok", "cmds"])
+def test_card_fault_once_decodes_whole_members_on_card(monkeypatch, fault, expand):
+    """A fault in the first decode only: the rejected members decode again
+    on the card as whole-member rows, to the payload, with no serial
+    route; the second launch holds only whole-member rows."""
+    seen = _faulty_decode(monkeypatch, fault, 1)
+    stage, staged = inflate_cu.stage, []
+    monkeypatch.setattr(inflate_cu, "stage", lambda *a: (staged.append(a[3]), stage(*a))[1])
+    sharded.serial_fallbacks.clear()
+    sharded.card_retries.clear()
+    assert sharded.sharded_gzip_decompress(_pair(6)[0], expand=expand, device="cpu") == PAYLOAD
+    assert len(seen) == 2 and any(len(r) > 1 for r in staged[0])
+    assert all(len(r) == 1 and r[0][1] == 0 for r in staged[1])
+    reason = {"not_ok": "card decode rejected a row",
+              "cmds": "member length or CRC-32 mismatch"}[fault]
+    assert sharded.card_retries == {reason: 1} and not sharded.serial_fallbacks
+
+
+@pytest.mark.parametrize("expand", EXPAND[:2])
+@pytest.mark.parametrize("index", ["tb", "sizes_only"])
+def test_overstated_isize_sizes_small_buffers(ref_host, monkeypatch, index, expand):
+    """One member's trailer isize with its high byte flipped (4,096 ->
+    16,781,312 bytes): no row holds more commands than its bits + 2, so
+    the command buffer stays within the archive's bits, and the outcome is
+    the reference's serial route's, its error for a size mismatch, as
+    the reference's device decode rejects the member."""
+    arch = _pair(6)[0] if index == "tb" else sizes_only(_pair(6)[0])
+    sizes = sharded._read_index_ex(np.frombuffer(arch, np.uint8))[0]
+    bad = bytearray(arch)
+    bad[sizes[0] - 1] ^= 1  # the first member's isize, bits 24-31
+    bad = bytes(bad)
+    seen = _faulty_decode(monkeypatch)
+    sharded.serial_fallbacks.clear()
+    sharded.card_retries.clear()
+    got = _outcome(lambda b: sharded.sharded_gzip_decompress(b, expand=expand, device="cpu"),
+                   bad)
+    assert got == _outcome(ref_gz.decompress, bad) and got[1] == "MalformedError"
+    if index == "tb":  # the reference's caps here come from the TB field
+        assert got == _outcome(lambda b: ref.sharded_gzip_decompress(b, expand=expand), bad)
+    assert seen and max(seen) <= 8 * len(bad)
+    mismatch = "member length or CRC-32 mismatch"
+    assert sharded.card_retries == {mismatch: 1} and sharded.serial_fallbacks == {mismatch: 1}
+
+
+def test_groups_split_the_decode(no_serial, monkeypatch):
+    """With the group bound lowered to two rows at the largest cap, the
+    sizes-only archive's members decode in consecutive groups, one launch
+    each, to the same bytes on both routes."""
+    arch = _card_archive("sizes_only")
+    plan = sharded.decode_plan(np.frombuffer(arch, np.uint8))
+    monkeypatch.setattr(sharded, "GROUP_BYTES", 2 * (max(plan.caps) + 4) * 4)
+    groups = sharded._groups(plan)
+    assert len(groups) >= 3 and [g[0] for g in groups[1:]] == [g[1] for g in groups[:-1]]
+    assert groups[0][0] == 0 and groups[-1][1] == len(plan.huff)
+    launches = []
+    decode = inflate_cu.decode
+    monkeypatch.setattr(inflate_cu, "decode", lambda *a: (launches.append(1), decode(*a))[1])
+    for expand in EXPAND[:2]:
+        launches.clear()
+        assert sharded.sharded_gzip_decompress(arch, expand=expand, device="cpu") == PAYLOAD
+        assert len(launches) == len(groups)
 
 
 @functools.cache
