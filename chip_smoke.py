@@ -19,12 +19,22 @@ Phases, each raising at its first failure:
      one literal or one match everywhere, nothing on the path); exact
      equality required (integer pipeline), both times printed, the device
      time L2-warm and cold (64 MB overwritten before each launch), and of
-     each CUDA kernel of a wrapper that launches several;
+     each CUDA kernel of a wrapper that launches several; round A's
+     candidate search (probe, extend) on the arguments round A gives it:
+     the production batch at levels 6, 4 and 12, with force_exact at
+     levels 6 and 4 and a 512-byte window, the B=1 tail batch, an
+     all-zero row beside random rows at levels 6, 4 and 12, 3 segments
+     of 4,999 bytes (T off the probe tile) at levels 6, 12 and 1, with
+     device times at levels 4 and 12; then round A's device kernels a
+     batch (fewer than 1,200 at levels 6 and 12) and its warm wall at
+     levels 4, 6 and 12;
   4. the main paths: gz.compress of the 8 MiB corpus (the tests/corpus
      files, sorted, concatenated, repeated, cut) on "cuda" at level 4, then
      at the default level 6 (round B), each checked against the
      reference's size and sha256 and by gzip.decompress; every kernel of
-     each path must be launched in that path's run;
+     each path must be launched in that path's run (probe and extend as
+     often as each other, at least once a batch), and a CUDA tensor that
+     reached the plain version of probe or extend would fail the run;
   5. where the time goes: stage walls of three warm level-6 runs (host
      clock, a synchronize around each stage) and one profiled run (device
      busy share, device time by kernel, the port's kernels' share, the
@@ -124,6 +134,7 @@ Exits nonzero, with no result, where CUDA is absent.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gzip
 import hashlib
 import json
@@ -184,15 +195,22 @@ BIG_WALL_RUNS = 3
 #: the CUDA kernels of csrc/ (device-side names in a profile)
 PORT_KERNELS = ("chunk_exit_kernel", "chunk_hop_kernel", "chunk_refine_kernel",
                 "hist_kernel", "litbits_tally_kernel", "litbits_scan_kernel", "gain_kernel",
-                "slots_kernel", "inflate_rows_kernel", "crc_rows_kernel")
-#: (C-source, TPU kernel it replaces) per kernel wrapper
+                "slots_kernel", "inflate_rows_kernel", "crc_rows_kernel", "probe_kernel",
+                "extend_kernel")
+#: (C-source, TPU kernel or XLA region it replaces) per kernel wrapper
 SOURCES = {"mark_path": ("mark_path.cu", "decompress_tpu/ops/parse_pl.py:105"),
            "histograms": ("hist.cu", "decompress_tpu/ops/hist_pl.py:90"),
            "litbits": ("cost.cu", "decompress_tpu/ops/cost_pl.py:246"),
            "gain": ("cost.cu", "decompress_tpu/ops/cost_pl.py:294"),
            "build_slots": ("pack_slots.cu", "decompress_tpu/ops/pack_pl.py:92"),
            "decode": ("inflate.cu", "decompress_tpu/ops/inflate_pl.py:415"),
-           "crc32_rows": ("crc.cu", "decompress_tpu/ops/checksum.py:217")}
+           "crc32_rows": ("crc.cu", "decompress_tpu/ops/checksum.py:217"),
+           "probe": ("probe.cu", "decompress_tpu/ops/lz77.py:354"),
+           "extend": ("probe.cu", "decompress_tpu/ops/lz77.py:570")}
+#: the kernel wrappers every round A launches
+ROUND_A = ("probe", "extend", "mark_path", "histograms")
+#: most device kernels one round A of a batch may run at levels 6 and 12
+ROUND_A_KERNELS_MAX = 1200
 
 
 def card_line() -> str:
@@ -282,6 +300,23 @@ def per_call(torch, prof, iters: int) -> tuple[dict, int]:
         if k is not None:
             split[k] = split.get(k, 0.0) + sum(d) / len(d) * launches
     return split, kernels
+
+
+def kernel_summary(torch, prof) -> dict:
+    """The device kernels of a profile: how many, busy ms (their summed
+    durations), the span ms from the first one's start to the last one's
+    end, the busy share (busy over span), and ms by kernel name, the
+    largest first."""
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    span_us = (max(e.time_range.end for e in kernels)
+               - min(e.time_range.start for e in kernels)) if kernels else 0
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {"device_kernels": len(kernels), "busy_ms": busy_us / 1e3, "span_ms": span_us / 1e3,
+            "busy_share": busy_us / max(span_us, 1),
+            "by_name_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1]))}
 
 
 def tensors(args):
@@ -376,6 +411,155 @@ def round_a_kernel_args(torch, lz77, cost_cu, d_data, nv, hl, seg: int) -> dict:
                            lit),
             "litbits": (lit, lc),
             "gain": (length, res["cand_dist"], None, None, pref, lc, dc)}
+
+
+def captured_args(module, names, fn) -> dict:
+    """name -> (args, kwargs) of the last call of each of module's
+    functions ``names`` while fn() runs."""
+    calls = {}
+    originals = {name: getattr(module, name) for name in names}
+
+    def spy(name):
+        def call(*args, **kw):
+            calls[name] = (args, kw)
+            return originals[name](*args, **kw)
+        return call
+
+    try:
+        for name in originals:
+            setattr(module, name, spy(name))
+        fn()
+    finally:
+        for name, f in originals.items():
+            setattr(module, name, f)
+    return calls
+
+
+#: round A's candidate-search cases, (batch, lz77_analyze keywords); the
+#: first is the one timed, and the card tests run every one
+ROUND_A_CASES = (
+    ("production", dict(level=6)), ("production", dict(level=4)),
+    ("production", dict(level=12)), ("production", dict(level=6, force_exact=True)),
+    ("production", dict(level=4, force_exact=True)),
+    ("production", dict(level=6, window_bits=9)), ("tail", dict(level=6)),
+    ("extremes", dict(level=6)), ("extremes", dict(level=4)),
+    ("extremes", dict(level=12)), ("odd", dict(level=6)), ("odd", dict(level=12)),
+    ("odd", dict(level=1)))
+
+
+def round_a_rows(arr, case: str):
+    """(data, n_valid, hist_len, seg_len), numpy, of a round-A batch of
+    the corpus ``arr``: "production" its first 8 segments of 130,560
+    bytes behind their 32 KiB history (row 0 with none), "tail" the B = 1
+    tail batch (its last, 32,768-byte segment), "odd" 3 segments of 4,999
+    bytes (T off the probe tile), "extremes" an all-zero row (every rank
+    a hit, runs of 258) with zero history, a random row with random
+    history and a random row with none (no hits)."""
+    import numpy as np
+
+    from decompress_tpu_torch import de
+    from decompress_tpu_torch.ops import lz77
+
+    seg = de.SEGMENT_SIZE
+    if case == "extremes":
+        rng = np.random.default_rng(1200)
+        chunks = [np.zeros(seg, np.uint8), rng.integers(0, 256, seg, dtype=np.uint8),
+                  rng.integers(0, 256, seg, dtype=np.uint8)]
+        hists = [np.zeros(lz77.HIST, np.uint8),
+                 rng.integers(0, 256, lz77.HIST, dtype=np.uint8), chunks[0][:0]]
+    else:
+        if case == "odd":
+            seg = 4999
+        starts = {"production": [i * seg for i in range(8)], "tail": [64 * seg],
+                  "odd": [12345 + i * seg for i in range(3)]}[case]
+        chunks = [arr[s:s + seg] for s in starts]
+        hists = [arr[max(0, s - lz77.HIST):s] for s in starts]
+    return de._history_rows(chunks, hists, seg) + (seg,)
+
+
+def round_a_calls(torch, dev, arr, case: str, kw: dict) -> dict:
+    """The probe's and extend's (args, kwargs) in a round A
+    (lz77_analyze) of the case's batch on ``dev``."""
+    from decompress_tpu_torch.ops import lz77, probe_cu
+
+    *rows, seg = round_a_rows(arr, case)
+    rows = [torch.from_numpy(a).to(dev) for a in rows]
+    return captured_args(probe_cu, ("probe", "extend"),
+                         lambda: lz77.lz77_analyze(*rows, seg_len=seg, **kw))
+
+
+def round_a_checks(torch, dev, arr, production, card) -> dict:
+    """Phase 3, round A's candidate search: probe and extend == their
+    plain versions on the arguments round A gives them (ROUND_A_CASES),
+    times on the level-6 production batch and device times at levels 4
+    and 12; then round A's device kernels and wall a batch at levels 4, 6
+    and 12."""
+    from decompress_tpu_torch import de
+    from decompress_tpu_torch.ops import lz77, probe_cu
+
+    seg = de.SEGMENT_SIZE
+    found = [round_a_calls(torch, dev, arr, case, kw) for case, kw in ROUND_A_CASES]
+    at_level = {kw["level"]: i for i, (case, kw) in enumerate(ROUND_A_CASES)
+                if case == "production" and len(kw) == 1}
+
+    def keyword_call(fn):
+        return lambda args, kw: fn(*args, **kw)
+
+    def present(out):
+        return tuple(a for a in out if a is not None)
+
+    stats = {}
+    for name in ("probe", "extend"):
+        kernel = keyword_call(getattr(probe_cu, name))
+        args = [f[name] for f in found]
+        stats[name] = check_kernel(torch, name, kernel,
+                                   keyword_call(getattr(probe_cu, f"{name}_plain")), args,
+                                   present, card=card, plain_iters=3)
+        for level in (4, 12):
+            split, _ = device_split(torch, lambda: kernel(*args[at_level[level]]))
+            stats[name][f"device_ms_level_{level}"] = sum(split.values())
+        print(f"{name}: device ms at level 4 {stats[name]['device_ms_level_4']:.4f}, at "
+              f"level 12 {stats[name]['device_ms_level_12']:.4f} [{card}]", flush=True)
+
+    per_level = {}
+    for level in (4, 6, 12):
+        def call():
+            return lz77.lz77_analyze(*production[:3], level=level, seg_len=seg)
+
+        _, kernels = device_split(torch, call, iters=3)
+        walls = [timed_call(torch, call)[1] for _ in range(3)]
+        per_level[level] = dict(device_kernels=kernels, wall_ms=1e3 * statistics.median(walls))
+        print(f"round A (lz77_analyze) of the production batch at level {level}: {kernels} "
+              f"device kernels a call, warm wall median {per_level[level]['wall_ms']:.1f} ms "
+              f"[{card}]", flush=True)
+    over = {lv: v["device_kernels"] for lv, v in per_level.items()
+            if lv != 4 and v["device_kernels"] >= ROUND_A_KERNELS_MAX}
+    if over:
+        raise AssertionError(f"round A ran {over} device kernels a batch, past "
+                             f"{ROUND_A_KERNELS_MAX}")
+    stats["probe"]["round_a_per_level"] = per_level
+    return stats
+
+
+@contextlib.contextmanager
+def no_cuda_in_plain(module, names):
+    """Raise where a CUDA tensor reaches one of module's plain versions."""
+    originals = {name: getattr(module, name) for name in names}
+
+    def guard(name):
+        def call(*args, **kw):
+            if any(getattr(a, "is_cuda", False) for a in args):
+                raise AssertionError(f"a CUDA tensor reached {module.__name__}.{name}")
+            return originals[name](*args, **kw)
+        return call
+
+    try:
+        for name in names:
+            setattr(module, name, guard(name))
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
 
 
 def kernel_checks(torch, dev, arr, card) -> dict:
@@ -491,6 +675,7 @@ def kernel_checks(torch, dev, arr, card) -> dict:
     print(f"litbits: the torch sequence it replaces (gather, zeros_like, cumsum, cat) "
           f"{seq_ms:.4f} ms against the kernel's {stats['litbits']['ms']:.4f} ms [{card}]",
           flush=True)
+    stats.update(round_a_checks(torch, dev, arr, [d_data, nv, hl, seg], card))
     return stats
 
 
@@ -628,14 +813,10 @@ def profile_run(torch, fn, card, title: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    span_us = (max(e.time_range.end for e in kernels)
-               - min(e.time_range.start for e in kernels)) if kernels else 0
-    print(f"{title}: profile: wall {1e3 * wall:.1f} ms, {len(kernels)} device kernels, busy "
-          f"{busy_us / 1e3:.1f} ms over a {span_us / 1e3:.1f} ms span "
-          f"({100 * busy_us / max(span_us, 1):.1f}% busy) [{card}]", flush=True)
+    k = kernel_summary(torch, prof)
+    print(f"{title}: profile: wall {1e3 * wall:.1f} ms, {k['device_kernels']} device kernels, "
+          f"busy {k['busy_ms']:.1f} ms over a {k['span_ms']:.1f} ms span "
+          f"({100 * k['busy_share']:.1f}% busy) [{card}]", flush=True)
     runtime = collections.Counter(e.name for e in prof.events() if e.name.startswith("cuda"))
     blocking = {k: runtime[k] for k in BLOCKING_CALLS}
     held = sum(e.time_range.elapsed_us() for e in prof.events() if e.name in BLOCKING_CALLS)
@@ -644,15 +825,12 @@ def profile_run(torch, fn, card, title: str) -> None:
           f"end included), beside "
           f"{runtime['cudaLaunchKernel']} cudaLaunchKernel, {runtime['cudaMemcpyAsync']} "
           f"cudaMemcpyAsync, {runtime['cudaHostAlloc']} cudaHostAlloc", flush=True)
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    top = list(k["by_name_ms"].items())
     ours = [kv for kv in top if port_kernel(kv[0])]
-    print(f"{title}: profile: the port's kernels {sum(us for _, us in ours) / 1e3:.3f} ms "
+    print(f"{title}: profile: the port's kernels {sum(ms for _, ms in ours):.3f} ms "
           f"of device time", flush=True)
-    for kname, us in top[:20] + ours:
-        print(f"  device {us / 1e3:8.3f} ms  {kname[:110]}")
+    for kname, ms in top[:20] + ours:
+        print(f"  device {ms:8.3f} ms  {kname[:110]}")
 
 
 def decode_stages(torch, decompress, title: str, runs: int, card) -> None:
@@ -1133,7 +1311,8 @@ def streaming_path(torch, dev, data: bytes, wrappers, card) -> None:
         q_out, q_s = timed_call(torch, lambda: stream_zl(head, engine="queue"))
         check("zl.Def (queue engine)", q_out, QUEUE_EXPECT, head, zlib.decompress)
         q_launches = {n: _build.LAUNCHES[n] for n in wrappers}
-        launched("zl.Def (queue engine)", q_launches, wrappers[:4])
+        launched("zl.Def (queue engine)", q_launches,
+                 [n for n in wrappers if n != "build_slots"])
         print(f"streaming: zl.Def queue engine launches {q_launches}; {analyses[0]} "
               f"device calls; wall {q_s:.4f} s = {len(head) / q_s / 1e6:.2f} MB/s "
               f"[{card}]", flush=True)
@@ -1263,12 +1442,12 @@ def lzo_path(torch, data: bytes, card) -> dict:
         _, cold, cold_an = run()
         _build.LAUNCHES.clear()
         out, warm, warm_an = run()
-        launches = {n: _build.LAUNCHES[n] for n in ("mark_path", "histograms")}
+        launches = {n: _build.LAUNCHES[n] for n in ROUND_A}
     finally:
         lzo._analyze = analyze
     expect("lzo: lzo.compress level 6", out, LZO_EXPECT)
     if [n for n, c in launches.items() if c <= 0]:
-        raise AssertionError(f"lzo.compress did not launch both kernels: {launches}")
+        raise AssertionError(f"lzo.compress did not launch round A's kernels: {launches}")
     print(f"lzo: launches {launches}; wall cold {cold:.4f} s (analysis {cold_an:.4f}, "
           f"emission {cold - cold_an:.4f}), warm {warm:.4f} s (analysis {warm_an:.4f}, "
           f"emission {warm - warm_an:.4f}) = {len(data) / warm / 1e6:.2f} MB/s [{card}]",
@@ -1308,7 +1487,7 @@ def fixed_step_path(torch, dev, data: bytes, card):
     def step():
         return pipeline.fixed_deflate_segments(*args, level=6, seg_len=FIXED_SEG)
 
-    _, cold, warm, launches = cold_warm(torch, step, ("mark_path", "histograms"))
+    _, cold, warm, launches = cold_warm(torch, step, ROUND_A)
     words, bits = step()
     raw = words.cpu().view(torch.int32).numpy().astype("<i4").tobytes()
     sha = hashlib.sha256(raw).hexdigest()
@@ -1317,7 +1496,8 @@ def fixed_step_path(torch, dev, data: bytes, card):
     if bits.tolist() != list(FIXED_TOTALS) or sha != FIXED_WORDS_SHA:
         raise AssertionError("fixed_deflate_segments differs from the reference")
     if [k for k, c in launches.items() if c <= 0]:
-        raise AssertionError(f"fixed_deflate_segments did not launch both kernels: {launches}")
+        raise AssertionError(f"fixed_deflate_segments did not launch round A's kernels: "
+                             f"{launches}")
     for i in range(FIXED_B):
         body = bitpack.words_to_bytes(words[i], int(bits[i]))
         if zlib.decompressobj(-15).decompress(body) != rows[i, lz77.HIST:].tobytes():
@@ -1339,7 +1519,7 @@ def fixed_step_path(torch, dev, data: bytes, card):
             raise AssertionError(f"compress_step_sharded on {nd} devices differs from (b)")
         print(f"compress_step_sharded on {nd} device(s) {[str(d) for d in mesh]}: equal to "
               f"(b), total_bits {int(total)}; launches "
-              f"{ {k: _build.LAUNCHES[k] for k in ('mark_path', 'histograms')} }; "
+              f"{ {k: _build.LAUNCHES[k] for k in ROUND_A} }; "
               f"wall {1e3 * s_wall:.1f} ms [{card}]", flush=True)
 
 
@@ -1632,9 +1812,15 @@ def main() -> int:
     stats = kernel_checks(torch, dev, de._np_u8(data), card)
 
     # ---- 4. the main paths: level 4, then the default level 6 ----
-    main_path(torch, data, 4, ("mark_path", "histograms", "build_slots"), card)
-    wrappers = ("mark_path", "histograms", "litbits", "gain", "build_slots")
-    launches, gz_out = main_path(torch, data, None, wrappers, card)
+    from decompress_tpu_torch.ops import probe_cu
+
+    wrappers = ("mark_path", "histograms", "litbits", "gain", "build_slots", "probe", "extend")
+    with no_cuda_in_plain(probe_cu, ("probe_plain", "extend_plain")):
+        main_path(torch, data, 4, ROUND_A + ("build_slots",), card)
+        launches, gz_out = main_path(torch, data, None, wrappers, card)
+    if not launches["probe"] == launches["extend"] >= 9:
+        raise AssertionError(f"the level-6 path ran round A's kernels {launches['probe']} and "
+                             f"{launches['extend']} times for its 9 batches")
 
     # ---- 5. where the time goes ----
     from decompress_tpu_torch import gz

@@ -10,13 +10,15 @@ reference's, array for array, batched over segments instead of vmapped:
   sorted rows, probed in rank space with the grade ladder (the short one
   of levels 1-4: exact 4- and 8-byte words, 16- and 64-byte
   fingerprints; the full 13-rung one of levels 5-12, over 16-bit hash
-  pairs), optionally tracking the runner-up (``top2``);
+  pairs), optionally tracking the runner-up (``top2``): the probe kernel
+  of ``probe_cu``;
 * the winner's length resolved from the ladder floor: by the span-walk
   descent over the fingerprint pyramid plus the exact 0..3-byte refine
   (short ladder), by one exact 64-byte record compare (full ladder), or
   by the exact linear extension (``force_exact``);
 * exact small-distance (d <= 4) run candidates merged in, then the
-  3-byte-hash pass for pure length-3 matches (``hash3``);
+  3-byte-hash pass for pure length-3 matches (``hash3``): with the
+  length resolution, the extension kernel of ``probe_cu``;
 * greedy/lazy take-defer, the mark-path parse (``parse_cu``), the exact
   verification pass, the histograms (``hist_cu``), and the
   trim-and-reparse repair that makes the output byte-exact;
@@ -39,7 +41,7 @@ import torch
 
 from ..core import huffman, tables
 
-from . import cost_cu, hist_cu, parse_cu, transfer
+from . import cost_cu, hist_cu, parse_cu, probe_cu, transfer
 
 # Copies of the reference's byte-deciding constants (ops/lz77.py cannot be
 # imported without JAX); tests/test_torch_lz77.py holds them equal.
@@ -60,7 +62,6 @@ HOT_DIST_BINS = 4096
 HOT_DISTS = 8
 
 _M32 = 0xFFFFFFFF
-_NEG_INF = -(1 << 30)
 
 
 @dataclass(frozen=True)
@@ -131,15 +132,6 @@ def _u32_words(b: torch.Tensor) -> torch.Tensor:
             | (torch.roll(x, -3, 1) << 24))
 
 
-def _prefix_bytes_equal(x: torch.Tensor) -> torch.Tensor:
-    """Number of equal low-order bytes given xor of two words (0..4)."""
-    nz = x != 0
-    return ((~nz).to(torch.int32) * 4
-            + (nz & ((x & 0xFF) == 0)).to(torch.int32)
-            + (nz & ((x & 0xFFFF) == 0)).to(torch.int32)
-            + (nz & ((x & 0xFFFFFF) == 0)).to(torch.int32))
-
-
 def _mix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Combine two span fingerprints: (a ^ rotl13(b)) * HASH_MUL."""
     rot = ((b << MIX_ROT) & _M32) | (b >> (32 - MIX_ROT))
@@ -196,28 +188,6 @@ def _probe_fields(w, fp, full_ladder: bool) -> tuple[torch.Tensor, ...]:
             _pack2(ahead(fp[32], 192), ahead(fp[64], 128)))
 
 
-def _ladder_rungs(xs, full_ladder: bool):
-    """(hit, weight) per rung above the 8-byte words, in chain order,
-    from the xors of the probe fields after the two exact words: each
-    rung counts only if every rung before it hit."""
-    if not full_ladder:
-        x16, x64 = xs
-        return ((x16 == 0, 8), (x64 == 0, 48))
-    x16, p1, p2, p3, p4, p5, p6 = xs
-
-    def hi(x):
-        return (x & 0xFFFF0000) == 0
-
-    def lo(x):
-        return (x & 0xFFFF) == 0
-
-    # floors 10, 12, 14, 16, 20, 24, 32, 48, 64, 96, 128, 192, 224
-    return ((hi(p1), 2), (lo(p1), 2), (hi(p2), 2), (x16 == 0, 2),
-            (lo(p2), 4), (hi(p3), 4), (lo(p3), 8), (hi(p4), 16),
-            (lo(p4), 16), (hi(p5), 32), (lo(p5), 32), (lo(p6), 64),
-            (hi(p6), 32))
-
-
 def _suffix_min(x: torch.Tensor) -> torch.Tensor:
     """Reverse cumulative minimum along the last axis."""
     return torch.flip(torch.cummin(torch.flip(x, (-1,)), -1).values, (-1,))
@@ -236,36 +206,13 @@ def _shift_right(a: torch.Tensor, k: int, fill: int) -> torch.Tensor:
                      dim=1)
 
 
-def _sorted_buckets(h: torch.Tensor, t: int):
-    """(sp, sh): positions and hashes in ``(hash, pos)`` order.  One int64
-    key (hash | pos) gives the reference's order on both of its sort
-    branches, for every segment length."""
+def _sort_key(h: torch.Tensor, t: int) -> tuple[torch.Tensor, int]:
+    """(skey, pos_bits): the rows' ``hash << pos_bits | pos`` keys,
+    sorted.  One int64 key gives the reference's ``(hash, pos)`` order on
+    both of its sort branches, for every segment length."""
     pos_bits = max(1, (t - 1).bit_length())
     pos = torch.arange(t, device=h.device)
-    skey = torch.sort((h << pos_bits) | pos, dim=1).values
-    return skey & ((1 << pos_bits) - 1), skey >> pos_bits
-
-
-def _pack_winner(score, cand, p4, sp):
-    """A probe winner as one int64 word: cand << 12 | floor << 3 |
-    tier << 1 | has.  The grade is recovered from the score
-    ((grade << 17) - dist); tier 1 = an exactly-3-byte candidate."""
-    has = score > _NEG_INF
-    grade = torch.clamp((score + (sp - cand)) >> 17, 0, MAX_MATCH)
-    return ((torch.clamp(cand, min=0) << 12)
-            | (torch.where(has, grade, 0) << 3)
-            | (torch.where(p4 >= 4, 2, 1) << 1) | has.to(torch.int64))
-
-
-def _winner_at_positions(packed_r, sp, hist: int, pos_pay):
-    """Scatter a packed winner back to position space (sp is a
-    permutation of each row) -> (has, tier, floor, cand-safe, dist) over
-    the payload."""
-    packed = torch.zeros_like(packed_r).scatter_(1, sp, packed_r)[:, hist:]
-    has = (packed & 1) == 1
-    cand = packed >> 12
-    return (has, (packed >> 1) & 3, (packed >> 3) & 0x1FF,
-            torch.where(has, cand, 0), pos_pay - cand)
+    return torch.sort((h << pos_bits) | pos, dim=1).values, pos_bits
 
 
 def _match_candidates(data, valid_lo, valid_hi, cfg: LevelConfig,
@@ -276,176 +223,55 @@ def _match_candidates(data, valid_lo, valid_hi, cfg: LevelConfig,
     data: uint8[B, T] (T = hist + seg_len); valid data of row b occupies
     [valid_lo[b], valid_hi[b]) (int64[B, 1]).  Lengths from the
     fingerprint descent or the ladder floor may overestimate on a
-    collision; callers run the exact verification pass."""
+    collision; callers run the exact verification pass.
+
+    The words, fingerprints, probe records and the two sorts are torch;
+    the K-rank probe and the winner's extension with the merges are the
+    two kernels of ``probe_cu``; the run lengths (a suffix scan) and the
+    hash3 candidates (a sort) are their inputs."""
     t = data.shape[1]
-    dev = data.device
     w = _u32_words(data)
     fp = _fingerprints(w)
 
     # ---- sorted-bucket candidates, probed in rank space: the probe
-    # fields are fetched by ONE row gather of a [B, T, R] record ----
-    sp, sh = _sorted_buckets(_hash15(w), t)
-    fields = torch.stack(_probe_fields(w, fp, cfg.full_ladder), 2)
-    probes = torch.gather(
-        fields, 1, sp[:, :, None].expand(-1, -1, fields.shape[2])).unbind(2)
-    del fields
+    # kernel gathers each rank's [R] record of the probe fields ----
+    skey, pos_bits = _sort_key(_hash15(w), t)
+    rec = torch.stack(_probe_fields(w, fp, cfg.full_ladder), 2).to(torch.int32)
+    top2 = cfg.top2 and not cfg.exact  # the runner-up feeds only "rec"
+    packed, packed2 = probe_cu.probe(
+        skey, pos_bits, rec, valid_lo, valid_hi, hist=hist, max_dist=max_dist,
+        k=cfg.k_candidates, full_ladder=cfg.full_ladder, top2=top2)
+    del skey, rec
 
-    sp_ok = sp < valid_hi
-    best_score = torch.full_like(sp, _NEG_INF)
-    best_cand = torch.zeros_like(sp)
-    best_p4 = torch.zeros(sp.shape, dtype=torch.int32, device=dev)
-    if cfg.top2:
-        score2, cand2, p42 = (torch.full_like(sp, _NEG_INF),
-                              torch.zeros_like(sp), torch.zeros_like(best_p4))
-    # every probe array padded once with K leading fill values: the k-th
-    # previous rank is then a view, not a copy
-    kmax = cfg.k_candidates
-
-    def padded(a, fill):
-        return torch.cat([a.new_full((a.shape[0], kmax), fill), a], 1)
-
-    sp_pad, sh_pad = padded(sp, -1), padded(sh, -1)
-    probes_pad = [padded(a, 0) for a in probes]
-    for k in range(1, kmax + 1):
-        lo = kmax - k  # the k-th previous rank starts here in a padded row
-        cand_p = sp_pad[:, lo:lo + t]
-        cand_h = sh_pad[:, lo:lo + t]
-        xs = [a_pad[:, lo:lo + t] ^ a for a_pad, a in zip(probes_pad, probes)]
-        dist = sp - cand_p
-        ok = ((cand_p >= 0) & (cand_h == sh) & (dist <= max_dist)
-              & (cand_p >= valid_lo) & (cand_p < valid_hi) & sp_ok)
-        plen4 = _prefix_bytes_equal(xs[0])
-        len4 = (xs[0] == 0) & ok
-        plen8 = torch.where(len4, _prefix_bytes_equal(xs[1]), 0)
-        eq = len4 & (xs[1] == 0)
-        grade = torch.where(ok, plen4, 0) + plen8
-        for hit, weight in _ladder_rungs(xs[2:], cfg.full_ladder):
-            eq = eq & hit
-            grade = grade + torch.where(eq, weight, 0)
-        usable = ok & (plen4 >= 3)
-        score = torch.where(usable, (grade.to(torch.int64) << 17) - dist,
-                            _NEG_INF)
-        better = score > best_score  # first max wins: argmax parity
-        if cfg.top2:
-            # the runner-up: the old best when a new best arrives,
-            # else the new score if it beats the old runner-up
-            b2 = ~better & (score > score2)
-            score2 = torch.where(better, best_score,
-                                 torch.where(b2, score, score2))
-            cand2 = torch.where(better, best_cand,
-                                torch.where(b2, cand_p, cand2))
-            p42 = torch.where(better, best_p4, torch.where(b2, plen4, p42))
-        best_score = torch.where(better, score, best_score)
-        best_cand = torch.where(better, cand_p, best_cand)
-        best_p4 = torch.where(better, plen4, best_p4)
-    del probes, probes_pad
-
-    pos_pay = torch.arange(hist, t, device=dev)
-    has, btier, bfloor, bsafe, bdist = _winner_at_positions(
-        _pack_winner(best_score, best_cand, best_p4, sp), sp, hist, pos_pay)
-
-    def at(a, idx):
-        idx = torch.clamp(idx, max=t - 1)
-        return torch.gather(a, 1, idx.expand(a.shape[0], idx.shape[-1]))
-
-    small_d = (1, 2, 3, 4)
+    runs = None
     if cfg.runs:
         # exact small-distance (RLE-ish) run lengths, payload only
         eqs = torch.stack(
-            [(data == torch.roll(data, d, 1))[:, hist:] for d in small_d])
+            [(data == torch.roll(data, d, 1))[:, hist:] for d in (1, 2, 3, 4)])
         runs = _run_lengths(eqs)
-
-    if cfg.exact:
-        # exact linear extension in 4-byte steps (the fallback)
-        length = torch.zeros_like(bsafe)
-        alive = has
-        for off in range(0, MAX_MATCH + 4, 4):
-            eq = _prefix_bytes_equal(at(w, bsafe + off) ^ at(w, pos_pay + off))
-            length = length + torch.where(alive, eq, 0)
-            alive = alive & (eq == 4)
-    elif cfg.full_ladder:
-        # exact 64-byte record compare from the ladder floor: the full
-        # ladder's inter-rung gaps are <= 63 bytes, so 16 words resolve
-        # the whole extension byte-exactly
-        length = _rec_descent(w, has, bfloor, bsafe, pos_pay)
-        if cfg.top2:
-            # resolve the runner-up exactly too and keep the longer
-            # (ties -> nearer)
-            has2, _, bfloor2, bsafe2, bdist2 = _winner_at_positions(
-                _pack_winner(score2, cand2, p42, sp), sp, hist, pos_pay)
-            length2 = _rec_descent(w, has2, bfloor2, bsafe2, pos_pay)
-            take2 = (length2 > length) | ((length2 == length) & (bdist2 < bdist))
-            length = torch.where(take2, length2, length)
-            bdist = torch.where(take2, bdist2, bdist)
-    else:
-        # doubling descent from the ladder floor over the fingerprint
-        # pyramid (the short ladder leaves a 64 -> 258 gap: spans from
-        # 128), then the exact 0..3-byte refine
-        length = torch.where(has, bfloor, 0)
-        for span in (128, 64, 32, 16, 8, 4):
-            f = fp[span]
-            eq = ((at(f, bsafe + length) == at(f, pos_pay + length)) & has
-                  & (length + span <= MAX_MATCH + 4))
-            length = length + torch.where(eq, span, 0)
-        rem = _prefix_bytes_equal(at(w, bsafe + length) ^ at(w, pos_pay + length))
-        length = length + torch.where(has, torch.clamp(rem, max=3), 0)
-        # tier-1 candidates matched only 3 bytes
-        length = torch.where(has & (btier == 1) & (length < 3), 3, length)
-        length = torch.where(has, length, 0)
-
-    if cfg.runs:
-        for di, d in enumerate(small_d):
-            src_ok = (pos_pay - d >= valid_lo) & (pos_pay < valid_hi)
-            len_d = torch.where(src_ok, torch.clamp(runs[di], max=MAX_MATCH), 0)
-            better = (len_d > length) | ((len_d == length) & (d < bdist))
-            bdist = torch.where(better, d, bdist)
-            length = torch.where(better, len_d, length)
-
+    cand3 = None
     if cfg.hash3:
-        length, bdist = _hash3_pass(w, length, bdist, valid_lo, valid_hi,
-                                    max_dist, hist, pos_pay)
+        cand3 = _hash3_candidates(w, valid_lo, valid_hi, max_dist, hist)
 
-    # clamp to data end and legality
-    length = torch.clamp(length, max=MAX_MATCH)
-    length = torch.minimum(length, torch.clamp(valid_hi - pos_pay, min=0))
-    too_far = (length == MIN_MATCH) & (bdist > TOO_FAR)
-    length = torch.where(too_far, 0, length)
-    length = torch.where(length >= MIN_MATCH, length, 0)
-    return length.to(torch.int32), bdist.to(torch.int32)
+    mode = "exact" if cfg.exact else "rec" if cfg.full_ladder else "span"
+    spans = None
+    if mode == "span":
+        spans = tuple(fp[span] for span in (128, 64, 32, 16, 8))
+    return probe_cu.extend(w, packed, packed2, spans, runs, cand3, valid_lo,
+                           valid_hi, hist=hist, mode=mode)
 
 
-def _rec_descent(w, has, floor, bsafe, pos_pay):
-    """Length = floor + the exact common prefix of the 16 words (64
-    bytes) at floor past the candidate and past the position: the
-    reference's "rec" descent (its record row ``rec64[i, j]`` is the
-    word at ``(i + 4j) mod T``)."""
-    b, s = has.shape
-    t = w.shape[1]
-    length = torch.where(has, floor, 0)
-    offs = 4 * torch.arange(16, device=w.device)
-
-    def words(start):
-        idx = (torch.clamp(start, max=t - 1)[:, :, None] + offs) % t
-        return torch.gather(w, 1, idx.reshape(b, s * 16)).reshape(b, s, 16)
-
-    x = words(bsafe + length) ^ words(pos_pay + length)
-    # the first unequal word f (16 if none): 4f equal bytes, then the
-    # equal low bytes of word f
-    miss = x != 0
-    first = torch.where(miss.any(2), miss.to(torch.int32).argmax(2), 16)
-    x_f = torch.gather(x, 2, torch.clamp(first, max=15)[:, :, None])[:, :, 0]
-    lcp = 4 * first + torch.where(first < 16, _prefix_bytes_equal(x_f), 0)
-    return torch.where(has, length + lcp, 0)
-
-
-def _hash3_pass(w, length, bdist, valid_lo, valid_hi, max_dist: int,
-                hist: int, pos_pay):
-    """Pure length-3 matches via a 3-byte hash: the nearest of the two
+def _hash3_candidates(w, valid_lo, valid_hi, max_dist: int,
+                      hist: int) -> torch.Tensor:
+    """Pure length-3 match candidates via a 3-byte hash -> int64[B, T -
+    hist] over the payload: at each position the nearest of the two
     previous same-hash rows whose low 24 bits equal exactly, within
-    min(TOO_FAR, max_dist), used only where no match was found."""
+    min(TOO_FAR, max_dist), or -1 (the match is used only where no other
+    was found)."""
     t = w.shape[1]
     w3 = w & 0xFFFFFF
-    sp3, sh3 = _sorted_buckets(_hash15(w3), t)
+    skey3, pos_bits = _sort_key(_hash15(w3), t)
+    sp3, sh3 = skey3 & ((1 << pos_bits) - 1), skey3 >> pos_bits
     w3_s = torch.gather(w3, 1, sp3)
     sp3_ok = sp3 < valid_hi
     best3 = torch.full_like(sp3, -1)
@@ -456,10 +282,7 @@ def _hash3_pass(w, length, bdist, valid_lo, valid_hi, max_dist: int,
                & (sp3 - cand_p <= min(TOO_FAR, max_dist))
                & (cand_p >= valid_lo) & (cand_p < valid_hi) & sp3_ok)
         best3 = torch.where(ok3 & (best3 < 0), cand_p, best3)
-    cand3 = torch.full_like(best3, -1).scatter_(1, sp3, best3)[:, hist:]
-    use3 = (length < MIN_MATCH) & (cand3 >= 0)
-    return (torch.where(use3, MIN_MATCH, length),
-            torch.where(use3, pos_pay - cand3, bdist))
+    return torch.full_like(best3, -1).scatter_(1, sp3, best3)[:, hist:].contiguous()
 
 
 def jump_array(take, plen, seg_len: int, p: int) -> torch.Tensor:

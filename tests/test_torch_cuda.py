@@ -50,10 +50,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from decompress_tpu_torch import _build, de, gz, lzo, parallel, zl
 from decompress_tpu_torch.ops import (bitpack, checksum, cost_cu, crc_cu, hist_cu, inflate,
                                       inflate_cu, lz77, pack_cu, parse_cu, pipeline,
-                                      transfer)
+                                      probe_cu, transfer)
 from decompress_tpu_torch.parallel import sharded
 from torch_archives import sizes_only
 
@@ -217,6 +218,53 @@ def test_gain_kernel(dev, b, t, hot):
     want = cost_cu.gain_plain(length, dist, hl, hd, pref, lcost, dcost)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case,kw", chip_smoke.ROUND_A_CASES)
+def test_probe_and_extend_kernels(dev, case, kw):
+    """Both kernels equal their plain versions on the inputs round A
+    gives them (chip_smoke.round_a_rows: the extremes batch has an
+    all-zero row, every rank a hit and runs of 258, and random rows with
+    no hits)."""
+    calls = chip_smoke.round_a_calls(torch, dev, np.frombuffer(_corpus_8mib(), np.uint8),
+                                     case, kw)
+    outs = {}
+    for name, plain in (("probe", probe_cu.probe_plain), ("extend", probe_cu.extend_plain)):
+        args, k = calls[name]
+        before = _build.LAUNCHES[name]
+        got = getattr(probe_cu, name)(*args, **k)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[name] == before + 1
+        want = plain(*args, **k)
+        assert (got[1] is None) == (want[1] is None)
+        for g, w in zip(got, want):
+            if w is not None:
+                assert torch.equal(g, w), name
+        outs[name] = got
+    if case == "extremes":
+        assert bool((outs["extend"][0][0, :-258] == 258).all())
+        # random rows: a 4-byte match in the window is a chance event
+        assert int((outs["probe"][0][1:3] & 1).sum()) < 64
+
+
+def test_probe_and_extend_reject_bad_tensors(dev):
+    skey = torch.zeros((2, 100), dtype=torch.int64, device=dev)
+    lim = torch.zeros((2, 1), dtype=torch.int64, device=dev)
+    rec = torch.zeros((2, 100, 9), dtype=torch.int32, device=dev)
+    kw = dict(hist=10, max_dist=1 << 15, full_ladder=True, top2=False)
+    with pytest.raises(ValueError):  # the short ladder's record is 4 wide
+        probe_cu.probe(skey, 7, rec, lim, lim, k=8, **{**kw, "full_ladder": False})
+    with pytest.raises(ValueError):
+        probe_cu.probe(skey, 7, rec, lim, lim, k=probe_cu.MAX_K + 1, **kw)
+    with pytest.raises(TypeError):
+        probe_cu.probe(skey.to(torch.int32), 7, rec, lim, lim, k=8, **kw)
+    w = skey.clone()
+    packed = torch.zeros((2, 90), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):  # "span" needs the fingerprints
+        probe_cu.extend(w, packed, None, None, None, None, lim, lim, hist=10, mode="span")
+    with pytest.raises(ValueError):
+        probe_cu.extend(w, packed[:, 1:], None, None, None, None, lim, lim, hist=10,
+                        mode="rec")
 
 
 def test_wrappers_reject_bad_tensors(dev):
