@@ -478,14 +478,15 @@ def round_a_rows(arr, case: str):
 
 
 def round_a_calls(torch, dev, arr, case: str, kw: dict) -> dict:
-    """The probe's and extend's (args, kwargs) in a round A
-    (lz77_analyze) of the case's batch on ``dev``."""
+    """The probe's and extend's (args, kwargs) in an eager round A
+    (``lz77_analyze.eager``: a replay of its program calls no wrapper) of
+    the case's batch on ``dev``."""
     from decompress_tpu_torch.ops import lz77, probe_cu
 
     *rows, seg = round_a_rows(arr, case)
     rows = [torch.from_numpy(a).to(dev) for a in rows]
     return captured_args(probe_cu, ("probe", "extend"),
-                         lambda: lz77.lz77_analyze(*rows, seg_len=seg, **kw))
+                         lambda: lz77.lz77_analyze.eager(*rows, seg_len=seg, **kw))
 
 
 def round_a_checks(torch, dev, arr, production, card) -> dict:
@@ -539,6 +540,180 @@ def round_a_checks(torch, dev, arr, production, card) -> dict:
                              f"{ROUND_A_KERNELS_MAX}")
     stats["probe"]["round_a_per_level"] = per_level
     return stats
+
+
+def program_cases(torch, dev, arr) -> list:
+    """(label, program, args, kwargs) of each captured program at the
+    main paths' shapes, on ``dev``: round A of the production batch at
+    levels 6 and 12 and of the B = 1 tail batch, round B with hot strides
+    (HOT), the trims and the re-parse on the level-6 round A, the pack
+    with the sharded writer's splits (8 members of 130,560 bytes, no
+    history) and the fixed step (B = 8, T = 2^17 of the corpus's first
+    1 MiB).  Round B's tables and the pack's come from the host stages
+    that feed them."""
+    import numpy as np
+
+    from decompress_tpu_torch import de
+    from decompress_tpu_torch.ops import lz77, pipeline
+    from decompress_tpu_torch.parallel import sharded
+
+    seg = de.SEGMENT_SIZE
+    prod = [torch.from_numpy(a).to(dev) for a in round_a_rows(arr, "production")[:3]]
+    tail = [torch.from_numpy(a).to(dev) for a in round_a_rows(arr, "tail")[:3]]
+    d_data, nv, hl = prod
+    res = lz77.lz77_analyze.eager(*prod, level=6, seg_len=seg)
+    lc, dc = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in lz77._cost_tables_host(
+        res["hist_lit"].cpu().numpy(), res["hist_dist"].cpu().numpy()))
+    hot = torch.tensor([HOT] * nv.shape[0], dtype=torch.int32, device=dev)
+    trim = (d_data, res["is_match"], res["length"], res["dist"], res["cand_length"],
+            res["cand_dist"], nv)
+
+    members = np.frombuffer(arr[:8 * seg].tobytes(), np.uint8).reshape(8, seg)
+    m_data, m_nv = torch.from_numpy(members.copy()).to(dev), torch.full(
+        (8,), seg, dtype=torch.int32, device=dev)
+    m_res = lz77.lz77_analyze.eager(m_data, m_nv, torch.zeros_like(m_nv), level=6,
+                                    seg_len=seg, hist=0)
+    (hv, hb), tabs, _ = de.plan_blocks(m_res["hist_lit"].cpu().numpy(),
+                                       m_res["hist_dist"].cpu().numpy(), np.full(8, seg),
+                                       np.zeros(8, bool))
+    lit_codes, lit_bits, dist_codes, dist_bits, eob_vals, eob_bits = tabs
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    pack = (m_res["on_path"], m_res["is_match"], m_res["length"], m_res["dist"], m_data,
+            put((lit_codes.astype(np.int32) << 4) | lit_bits),
+            put((dist_codes.astype(np.int32) << 4) | dist_bits), put(hv.astype(np.int64)),
+            put(hb), put(eob_vals.astype(np.int64)), put(eob_bits))
+
+    rows = np.zeros((FIXED_B, lz77.HIST + FIXED_SEG), np.uint8)
+    rows[:, lz77.HIST:] = arr[:FIXED_B * FIXED_SEG].reshape(FIXED_B, FIXED_SEG)
+    fixed = [put(rows), put(np.full(FIXED_B, FIXED_SEG, np.int32)),
+             put(np.zeros(FIXED_B, np.int32)), put(np.ones(FIXED_B, np.int32)),
+             *pipeline._fixed_tables(dev)]
+    return [
+        ("round A, level 6", lz77.lz77_analyze, prod, dict(level=6, seg_len=seg)),
+        ("round A, level 12", lz77.lz77_analyze, prod, dict(level=12, seg_len=seg)),
+        ("round A, B = 1 tail", lz77.lz77_analyze, tail, dict(level=6, seg_len=seg)),
+        ("round B, hot strides", lz77.lz77_parse_cost,
+         (d_data, res["cand_length"], res["cand_dist"], nv, lc, dc, hl, hot),
+         dict(seg_len=seg, lazy=True)),
+        ("trims", lz77.lz77_trim_candidates, trim, dict(seg_len=seg)),
+        ("re-parse", lz77.lz77_reparse_greedy,
+         (d_data, res["cand_length"], res["cand_dist"], nv), dict(seg_len=seg, two_round=True)),
+        ("pack, splits", de.pack_device, pack,
+         dict(out_words=(9 * seg) // 32 + 2 * de._HDR_PAD, n_splits=sharded.N_SPLITS,
+              split_stride=sharded.SPLIT_STRIDE, split_bits=sharded.SPLIT_BITS)),
+        ("fixed step", pipeline.fixed_step, fixed,
+         dict(level=6, seg_len=FIXED_SEG, out_words=(10 * FIXED_SEG) // 32 + 64)),
+    ]
+
+
+def program_leaves(out) -> list:
+    """The tensors of a program's result, in order."""
+    from decompress_tpu_torch.ops import graphs
+
+    leaves: list = []
+    graphs._flatten(out, leaves, "result")
+    return leaves
+
+
+def same_leaves(torch, got, want) -> bool:
+    g, w = program_leaves(got), program_leaves(want)
+    return len(g) == len(w) and all(a.dtype == b.dtype and torch.equal(a, b)
+                                    for a, b in zip(g, w))
+
+
+def describe_key(entry) -> str:
+    """A captured program's key, readable: its statics and input shapes."""
+    _, statics, _, shapes = entry.key
+    stat = ", ".join(f"{k}={v}" for k, v in statics)
+    return f"{entry.name}({stat}; {[list(s[0]) for s in shapes]})"
+
+
+def captured_report(torch, title: str, card) -> None:
+    """The captured programs of the card now: each key's capture time and
+    graph pool bytes, and their count and sum."""
+    from decompress_tpu_torch.ops import graphs
+
+    entries = graphs.captured(0)
+    print(f"graphs: {title}: {len(entries)} captured programs, their graph pools "
+          f"{sum(e.pool_bytes for e in entries) / 2**20:.1f} MiB [{card}]", flush=True)
+    for e in entries:
+        print(f"  capture {1e3 * e.capture_s:8.1f} ms  pool {e.pool_bytes / 2**20:7.1f} MiB  "
+              f"{describe_key(e)[:150]}", flush=True)
+
+
+def enqueue_s(torch, fn) -> float:
+    """Host seconds until fn() returns, the card idle before it: the time
+    the host takes to enqueue fn's work (the call returns before the card
+    finishes)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt
+
+
+def kernels_a_call(torch, fn) -> int:
+    """Device kernels a call of fn() in a profile, profiled again where
+    the profiler recorded none (device_split retries only where it found
+    none of the port's kernels, and some programs launch none)."""
+    kernels = 0
+    for _ in range(3):
+        _, kernels = device_split(torch, fn, iters=3)
+        if kernels:
+            break
+    return kernels
+
+
+def graph_checks(torch, dev, arr, card) -> dict:
+    """Phase 12: every captured program at the main paths' shapes
+    (program_cases) replays equal to its eager function, exactly; each
+    key's capture time, graph pool bytes, device kernels a replay against
+    an eager run, and the host's enqueue of each, interleaved."""
+    from decompress_tpu_torch import _build
+    from decompress_tpu_torch.ops import graphs
+
+    captured_report(torch, "after phases 3-11", card)
+    graphs.clear()
+    out = {}
+    for label, prog, args, kw in program_cases(torch, dev, arr):
+        eager = prog.eager(*args, **kw)
+        launches = collections.Counter(_build.LAUNCHES)
+        first = prog(*args, **kw)
+        eager_launches = _build.LAUNCHES - launches
+        entry = graphs.captured(0)[-1]
+        replay = prog(*args, **kw)
+        torch.cuda.synchronize()
+        if not (same_leaves(torch, first, eager) and same_leaves(torch, replay, eager)):
+            raise AssertionError(f"graphs: {label}: a replay differs from the eager function")
+        if entry.launches != eager_launches:
+            raise AssertionError(f"graphs: {label}: the capture counts {dict(entry.launches)} "
+                                 f"launches, the eager run {dict(eager_launches)}")
+        replay_kernels = kernels_a_call(torch, lambda: prog(*args, **kw))
+        eager_kernels = kernels_a_call(torch, lambda: prog.eager(*args, **kw))
+        enq = {"replay": [], "eager": []}
+        for r in range(WALL_RUNS):
+            for side in (("replay", "eager") if r % 2 == 0 else ("eager", "replay")):
+                fn = prog if side == "replay" else prog.eager
+                enq[side].append(1e3 * enqueue_s(torch, lambda: fn(*args, **kw)))
+        stat = dict(capture_ms=1e3 * entry.capture_s, pool_bytes=entry.pool_bytes,
+                    launches=dict(entry.launches), replay_kernels=replay_kernels,
+                    eager_kernels=eager_kernels,
+                    replay_enqueue_ms=statistics.median(enq["replay"]),
+                    eager_enqueue_ms=statistics.median(enq["eager"]))
+        out[label] = stat
+        print(f"graphs: {label}: replay == eager; capture {stat['capture_ms']:.1f} ms, pool "
+              f"{entry.pool_bytes / 2**20:.1f} MiB, {replay_kernels} device kernels a replay "
+              f"(eager {eager_kernels}), kernel launches a replay {stat['launches']}; host "
+              f"enqueue median replay {stat['replay_enqueue_ms']:.3f} ms, eager "
+              f"{stat['eager_enqueue_ms']:.3f} ms ({WALL_RUNS} each, interleaved) [{card}]",
+              flush=True)
+
+    captured_report(torch, "phase 12", card)
+    return out
 
 
 @contextlib.contextmanager
@@ -1853,10 +2028,15 @@ def main() -> int:
     # ---- 11. TS and sizes-only archives decoded on the card ----
     stats["decode"]["whole_member"] = index_kinds_path(torch, dev, data, card)
 
+    # ---- 12. the captured programs against their eager functions ----
+    programs = graph_checks(torch, dev, de._np_u8(data), card)
+
     kernels = [
         dict(name=name, route="cuda",
              source=f"decompress_tpu_torch/csrc/{src}", replaces=rep,
-             launches=launches[name], **stats[name])
+             launches=launches[name], **stats[name],
+             launches_per_replay={label: p["launches"][name] for label, p in programs.items()
+                                  if name in p["launches"]})
         for name, (src, rep) in SOURCES.items()]
     print(card)
     print(json.dumps({"kernels": kernels}))

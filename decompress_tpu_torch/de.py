@@ -45,7 +45,7 @@ from .core.tables import (
     PRECODE_ORDER,
     WINDOW_SIZE,
 )
-from .ops import bitpack, lz77, pack_cu, transfer
+from .ops import bitpack, graphs, lz77, pack_cu, transfer
 
 # ---------------------------------------------------------------------------
 # Host half of the reference's de.py, copied (the port imports nothing of
@@ -783,7 +783,7 @@ def pack_segments(res, sym_lit, hdr_vals, hdr_bits, lit_codes, lit_bits,
                   dist_codes, dist_bits, eob_vals, eob_bits, *, out_words: int,
                   n_splits: int = 0, split_stride: int = 2048,
                   split_bits: int = 0):
-    """The pack of one batch: slot build, then the plane bit pack.
+    """The pack of one batch: the tables uploaded, then :func:`pack_device`.
 
     ``res`` holds the parse arrays (on_path, is_match, length, dist) on
     the device of ``sym_lit`` (uint8[B, seg] payload bytes); the header
@@ -796,19 +796,32 @@ def pack_segments(res, sym_lit, hdr_vals, hdr_bits, lit_codes, lit_bits,
     def put(a):
         return transfer.upload(a, dev)
 
-    lit_cb = put((lit_codes.astype(np.int32) << 4) | lit_bits)
-    dist_cb = put((dist_codes.astype(np.int32) << 4) | dist_bits)
-    v01, n01, v23, n23 = pack_cu.build_slots(
+    return pack_device(
         res["on_path"], res["is_match"], res["length"], res["dist"], sym_lit,
-        lit_cb, dist_cb)
+        put((lit_codes.astype(np.int32) << 4) | lit_bits),
+        put((dist_codes.astype(np.int32) << 4) | dist_bits),
+        put(hdr_vals.astype(np.int64)), put(hdr_bits), put(eob_vals.astype(np.int64)),
+        put(eob_bits), out_words=out_words, n_splits=n_splits,
+        split_stride=split_stride, split_bits=split_bits)
+
+
+@graphs.program(static=("out_words", "n_splits", "split_stride", "split_bits"))
+def pack_device(on_path, is_match, length, dist, sym_lit, lit_cb, dist_cb, hdr_vals,
+                hdr_bits, eob_vals, eob_bits, *, out_words: int, n_splits: int = 0,
+                split_stride: int = 2048, split_bits: int = 0):
+    """The pack's device half (the reference's ``_get_pack_jit``): the
+    slot build, the plane bit pack and, with ``n_splits > 1``, the split
+    points; the code tables are packed ``code << 4 | len`` (int32[B, 286]
+    and [B, 30]).  Returns what :func:`pack_segments` does."""
+    v01, n01, v23, n23 = pack_cu.build_slots(on_path, is_match, length, dist, sym_lit,
+                                             lit_cb, dist_cb)
     words, total, boff, posbits = bitpack.pack_slot_planes(
-        v01, n01, v23, n23, put(hdr_vals.astype(np.int64)), put(hdr_bits),
-        put(eob_vals.astype(np.int64)), put(eob_bits), out_words)
+        v01, n01, v23, n23, hdr_vals, hdr_bits, eob_vals, eob_bits, out_words)
     if n_splits <= 1:
         return words, total
     return (words, total), split_points(
-        res["on_path"], res["is_match"], res["length"], boff, posbits,
-        n_splits=n_splits, split_stride=split_stride, split_bits=split_bits)
+        on_path, is_match, length, boff, posbits, n_splits=n_splits,
+        split_stride=split_stride, split_bits=split_bits)
 
 
 def split_points(on_path, is_match, length, boff, posbits, *, n_splits: int,

@@ -29,6 +29,11 @@ reference's, array for array, batched over segments instead of vmapped:
 uint32 arithmetic (hashes, fingerprints) runs in int64 masked to 32
 bits: torch has no wrapping uint32 multiply, and int32 shifts are
 arithmetic.
+
+Round A, round B, the trims and the re-parse are programs of
+``ops/graphs``, as the reference jits them: on a CUDA device each call
+is one replay of a captured CUDA graph.  The host reads between them
+(exactness, the cost tables, the retry loops) stay host control flow.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import torch
 
 from ..core import huffman, tables
 
-from . import cost_cu, hist_cu, parse_cu, probe_cu, transfer
+from . import cost_cu, graphs, hist_cu, parse_cu, probe_cu, transfer
 
 # Copies of the reference's byte-deciding constants (ops/lz77.py cannot be
 # imported without JAX); tests/test_torch_lz77.py holds them equal.
@@ -378,6 +383,7 @@ def _dist_counts_batch(is_match, dist) -> torch.Tensor:
     return out.scatter_add_(1, md.to(torch.int64), is_match.to(torch.int32))
 
 
+@graphs.program(static=("level", "seg_len", "force_exact", "window_bits", "hist"))
 def lz77_analyze(data, n_valid, hist_len, *, level: int, seg_len: int,
                  force_exact: bool = False, window_bits: int = 15,
                  hist: int = HIST) -> dict[str, torch.Tensor]:
@@ -407,6 +413,7 @@ def lz77_analyze(data, n_valid, hist_len, *, level: int, seg_len: int,
     return out
 
 
+@graphs.program(static=("seg_len", "hist"))
 def lz77_trim_candidates(data, is_match, length, dist, cand_length,
                          cand_dist, n_valid, *, seg_len: int,
                          hist: int = HIST) -> torch.Tensor:
@@ -426,6 +433,7 @@ def lz77_trim_candidates(data, is_match, length, dist, cand_length,
     return cl.to(torch.int32)
 
 
+@graphs.program(static=("seg_len", "hist", "lazy", "two_round"))
 def lz77_reparse_greedy(data, cand_length, cand_dist, n_valid, *,
                         seg_len: int, hist: int = HIST, lazy: bool = True,
                         two_round: bool = False) -> dict[str, torch.Tensor]:
@@ -473,6 +481,7 @@ def _hot_lane(data, n_valid, hist_len, hot, *, seg_len: int, hist: int,
     return hot_len.to(torch.int32), hot_d.to(torch.int32)
 
 
+@graphs.program(static=("seg_len", "hist", "lazy", "window_bits"))
 def lz77_parse_cost(data, cand_length, cand_dist, n_valid, lit_cost,
                     dist_cost, hist_len=None, hot_dists=None, *,
                     seg_len: int, hist: int = HIST, lazy: bool = True,

@@ -6,7 +6,8 @@ entropy emission of a batch of segments on their device with the fixed
 Huffman trees (RFC 1951 §3.2.6), with no host tree build and no host
 sync: exact candidates, the mark-path and histogram kernels
 (``lz77.lz77_analyze(force_exact=True)``), the fixed-code arithmetic of
-``ops/codes``, then :func:`bitpack.pack_bits_device`.  The dynamic-tree
+``ops/codes``, then :func:`bitpack.pack_bits_device`, captured as one
+program (``ops/graphs``) on a CUDA device.  The dynamic-tree
 pipeline (``de.deflate``) adds a host tree build between the same two
 device stages.
 """
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from ..core import huffman, tables
-from . import bitpack, codes, lz77
+from . import bitpack, codes, graphs, lz77
 
 
 @functools.cache
@@ -36,6 +37,16 @@ def _fixed_code_arrays():
     )
 
 
+@functools.cache
+def _fixed_tables(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The packed (code << 4 | len) fixed tables on ``dev``, int64[286] and
+    int64[30]: made once a device, before any capture (a copy from host
+    memory cannot be captured)."""
+    lit_code, lit_len, dist_code, dist_len = _fixed_code_arrays()
+    return tuple(torch.from_numpy((c.astype(np.int64) << 4) | n).to(dev)
+                 for c, n in ((lit_code, lit_len), (dist_code, dist_len)))
+
+
 def fixed_deflate_segments(data, n_valid, hist_len, bfinal, *, level: int = 6,
                            seg_len: int = 1 << 17, out_words: int | None = None):
     """Whole fixed-Huffman DEFLATE blocks, one a segment, on the device of
@@ -46,18 +57,27 @@ def fixed_deflate_segments(data, n_valid, hist_len, bfinal, *, level: int = 6,
     history bytes; bfinal: int32[B], 1 where the segment ends its stream.
     Returns (words uint32[B, out_words], total_bits int32[B]): standard
     single-block fixed-Huffman DEFLATE bodies, LSB-first in little-endian
-    words, equal to the reference's."""
+    words, equal to the reference's.  The device work is one program
+    (:func:`fixed_step`)."""
     if out_words is None:
         out_words = (10 * seg_len) // 32 + 64
+    lit_cb, dist_cb = _fixed_tables(data.device)
+    return fixed_step(data, n_valid, hist_len, bfinal, lit_cb, dist_cb, level=level,
+                      seg_len=seg_len, out_words=out_words)
+
+
+@graphs.program(static=("level", "seg_len", "out_words"))
+def fixed_step(data, n_valid, hist_len, bfinal, lit_cb, dist_cb, *, level: int,
+               seg_len: int, out_words: int):
+    """The fixed step's device work (the reference's jitted
+    ``fixed_deflate_segments``) over the packed fixed tables of
+    :func:`_fixed_tables`."""
     # exact extension: one device pass with no verification retry, so the
     # output is correct without a host sync
     res = lz77.lz77_analyze(data, n_valid, hist_len, level=level,
                             seg_len=seg_len, force_exact=True)
-    lit_code, lit_len, dist_code, dist_len = _fixed_code_arrays()
+    lit_code, lit_len, _, _ = _fixed_code_arrays()
     dev = data.device
-    # packed (code << 4 | len) fixed tables: one gathered element a slot
-    lit_cb = torch.from_numpy((lit_code.astype(np.int64) << 4) | lit_len).to(dev)
-    dist_cb = torch.from_numpy((dist_code.astype(np.int64) << 4) | dist_len).to(dev)
 
     on_path, is_match = res["on_path"], res["is_match"]
     sym_lit = data[:, lz77.HIST:].to(torch.int64)
@@ -84,7 +104,7 @@ def fixed_deflate_segments(data, n_valid, hist_len, bfinal, *, level: int = 6,
 
     # header (BFINAL, BTYPE=01) and the trailing EOB
     hdr_vals = torch.stack([bfinal.to(torch.int64), torch.ones_like(bfinal, dtype=torch.int64)], 1)
-    hdr_bits = torch.tensor([[1, 2]], dtype=torch.int64, device=dev).expand(b, 2)
+    hdr_bits = torch.arange(1, 3, dtype=torch.int64, device=dev).expand(b, 2)
     eob_vals = torch.full((b, 1), int(lit_code[tables.EOB]), dtype=torch.int64, device=dev)
     eob_bits = torch.full((b, 1), int(lit_len[tables.EOB]), dtype=torch.int64, device=dev)
 

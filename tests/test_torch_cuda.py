@@ -37,9 +37,15 @@ flipped CRC-32 taking the counted serial route (the reference's error) on
 each.  The 8 MiB corpus's archives with the legacy TS index and with the
 index cut to member sizes decoded on the card on both routes in one
 launch, in 9 launches with the group bound lowered, and the decode kernel
-on whole-member rows against its plain version.
+on whole-member rows against its plain version.  The captured programs
+(``ops/graphs``) at the main paths' shapes (``chip_smoke.program_cases``):
+every replay equal to its eager function, exactly; a replay of other
+inputs leaving an earlier result as it was; each replay adding its
+capture's launches; a capture that syncs raising every time; the LRU
+evicting and capturing again.
 """
 
+import collections
 import functools
 import gzip
 import hashlib
@@ -52,9 +58,9 @@ import torch
 
 import chip_smoke
 from decompress_tpu_torch import _build, de, gz, lzo, parallel, zl
-from decompress_tpu_torch.ops import (bitpack, checksum, cost_cu, crc_cu, hist_cu, inflate,
-                                      inflate_cu, lz77, pack_cu, parse_cu, pipeline,
-                                      probe_cu, transfer)
+from decompress_tpu_torch.ops import (bitpack, checksum, cost_cu, crc_cu, graphs, hist_cu,
+                                      inflate, inflate_cu, lz77, pack_cu, parse_cu,
+                                      pipeline, probe_cu, transfer)
 from decompress_tpu_torch.parallel import sharded
 from torch_archives import sizes_only
 
@@ -696,3 +702,104 @@ def test_compress_step_and_mesh_archive_on_card_match_cpu(dev):
     want_a = sharded.sharded_gzip_compress(x, member_size=16384, device="cpu")
     for mesh in (parallel.make_mesh(), (dev, dev)):
         assert sharded.sharded_gzip_compress(x, member_size=16384, mesh=mesh) == want_a
+
+
+# ---------------------------------------------------------------------------
+# The captured programs (ops/graphs): replays against the eager functions.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def program_cases():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    arr = np.frombuffer(_corpus_8mib(), np.uint8)
+    return chip_smoke.program_cases(torch, torch.device("cuda"), arr)
+
+
+def test_programs_replay_equal_to_eager(program_cases):
+    """Round A at levels 6 and 12 and of the B = 1 tail, round B with hot
+    strides, the trims, the re-parse, the pack with splits and the fixed
+    step, at the main paths' shapes: the capturing call and a replay
+    equal the eager function in every output, and a replay returns
+    clones, not the graph's static outputs."""
+    graphs.clear()
+    for label, prog, args, kw in program_cases:
+        want = prog.eager(*args, **kw)
+        first = prog(*args, **kw)
+        entry = graphs.captured(0)[-1]
+        replay = prog(*args, **kw)
+        assert chip_smoke.same_leaves(torch, first, want), label
+        assert chip_smoke.same_leaves(torch, replay, want), label
+        static = {t.data_ptr() for t in entry.outputs}
+        assert not static & {t.data_ptr() for t in chip_smoke.program_leaves(replay)}, label
+
+
+def test_replays_leave_earlier_results(program_cases):
+    """Two replays of one key with different inputs: the first call's
+    returned outputs are unchanged after the second."""
+    _, prog, args, kw = program_cases[0]
+    prog(*args, **kw)
+    first = prog(*args, **kw)
+    kept = [t.clone() for t in chip_smoke.program_leaves(first)]
+    other = [torch.roll(a, 1, 0) for a in args]
+    second = prog(*other, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(chip_smoke.program_leaves(first), kept))
+    assert chip_smoke.same_leaves(torch, second, prog.eager(*other, **kw))
+
+
+def test_replays_count_the_captured_launches(program_cases):
+    """The capture counts what its eager run launched; each replay adds
+    that delta to _build.LAUNCHES, and nothing else does."""
+    graphs.clear()
+    _, prog, args, kw = program_cases[0]
+    before = collections.Counter(_build.LAUNCHES)
+    prog(*args, **kw)
+    eager = _build.LAUNCHES - before
+    (entry,) = graphs.captured(0)
+    assert entry.launches == eager and set(eager) == {"probe", "extend", "mark_path",
+                                                      "histograms"}
+    _build.LAUNCHES.clear()
+    prog(*args, **kw)
+    prog(*args, **kw)
+    assert _build.LAUNCHES == collections.Counter({k: 2 * n for k, n in eager.items()})
+
+
+@graphs.program()
+def _syncs(x):
+    return x * int(x.sum())
+
+
+@graphs.program()
+def _scaled(x):
+    return torch.cumsum(x * 3, 0) + 1
+
+
+def test_a_capture_that_syncs_raises(dev):
+    """A function that reads a device value on the host runs eagerly, but
+    its capture raises, every time: nothing falls back."""
+    x = torch.arange(6, device=dev)
+    assert torch.equal(_syncs.eager(x), x * 15)
+    graphs.clear()
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            _syncs(x)
+        assert torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev)
+    assert graphs.captured(0) == []
+    assert torch.equal(_scaled(x), _scaled.eager(x)) and len(graphs.captured(0)) == 1
+
+
+def test_lru_evicts_and_recaptures(dev, monkeypatch):
+    monkeypatch.setattr(graphs, "MAX_PROGRAMS", 2)
+    graphs.clear()
+    xs = [torch.arange(n, device=dev) for n in (5, 6, 7)]
+    for x in xs:
+        _scaled(x)
+    assert [e.key[-1][0][0] for e in graphs.captured(0)] == [(6,), (7,)]
+    captures = graphs.CAPTURES["_scaled"]
+    assert torch.equal(_scaled(xs[0] + 1), _scaled.eager(xs[0] + 1))  # captured again
+    assert graphs.CAPTURES["_scaled"] == captures + 1
+    assert torch.equal(_scaled(xs[0] + 2), _scaled.eager(xs[0] + 2))  # a replay
+    assert graphs.CAPTURES["_scaled"] == captures + 1
+    assert [e.key[-1][0][0] for e in graphs.captured(0)] == [(7,), (5,)]
