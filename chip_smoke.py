@@ -20,21 +20,23 @@ Phases, each raising at its first failure:
      equality required (integer pipeline), both times printed, the device
      time L2-warm and cold (64 MB overwritten before each launch), and of
      each CUDA kernel of a wrapper that launches several; round A's
-     candidate search (probe, extend) on the arguments round A gives it:
+     candidate search (fields, probe, extend) on the arguments round A
+     gives it, the bound counting a probe record by its fields:
      the production batch at levels 6, 4 and 12, with force_exact at
      levels 6 and 4 and a 512-byte window, the B=1 tail batch, an
      all-zero row beside random rows at levels 6, 4 and 12, 3 segments
      of 4,999 bytes (T off the probe tile) at levels 6, 12 and 1, with
      device times at levels 4 and 12; then round A's device kernels a
-     batch (fewer than 1,200 at levels 6 and 12) and its warm wall at
+     batch (fewer than 240 at levels 6 and 12) and its warm wall at
      levels 4, 6 and 12;
   4. the main paths: gz.compress of the 8 MiB corpus (the tests/corpus
      files, sorted, concatenated, repeated, cut) on "cuda" at level 4, then
      at the default level 6 (round B), each checked against the
      reference's size and sha256 and by gzip.decompress; every kernel of
-     each path must be launched in that path's run (probe and extend as
-     often as each other, at least once a batch), and a CUDA tensor that
-     reached the plain version of probe or extend would fail the run;
+     each path must be launched in that path's run (fields, probe and
+     extend as often as each other, at least once a batch), and a CUDA
+     tensor that reached the plain version of fields, probe or extend
+     would fail the run;
   5. where the time goes: stage walls of three warm level-6 runs (host
      clock, a synchronize around each stage) and one profiled run (device
      busy share, device time by kernel, the port's kernels' share, the
@@ -195,8 +197,8 @@ BIG_WALL_RUNS = 3
 #: the CUDA kernels of csrc/ (device-side names in a profile)
 PORT_KERNELS = ("chunk_exit_kernel", "chunk_hop_kernel", "chunk_refine_kernel",
                 "hist_kernel", "litbits_tally_kernel", "litbits_scan_kernel", "gain_kernel",
-                "slots_kernel", "inflate_rows_kernel", "crc_rows_kernel", "probe_kernel",
-                "extend_kernel")
+                "slots_kernel", "inflate_rows_kernel", "crc_rows_kernel", "fields_kernel",
+                "probe_kernel", "extend_kernel")
 #: (C-source, TPU kernel or XLA region it replaces) per kernel wrapper
 SOURCES = {"mark_path": ("mark_path.cu", "decompress_tpu/ops/parse_pl.py:105"),
            "histograms": ("hist.cu", "decompress_tpu/ops/hist_pl.py:90"),
@@ -205,12 +207,16 @@ SOURCES = {"mark_path": ("mark_path.cu", "decompress_tpu/ops/parse_pl.py:105"),
            "build_slots": ("pack_slots.cu", "decompress_tpu/ops/pack_pl.py:92"),
            "decode": ("inflate.cu", "decompress_tpu/ops/inflate_pl.py:415"),
            "crc32_rows": ("crc.cu", "decompress_tpu/ops/checksum.py:217"),
+           "fields": ("probe.cu", "decompress_tpu/ops/lz77.py:283"),
            "probe": ("probe.cu", "decompress_tpu/ops/lz77.py:354"),
            "extend": ("probe.cu", "decompress_tpu/ops/lz77.py:570")}
 #: the kernel wrappers every round A launches
-ROUND_A = ("probe", "extend", "mark_path", "histograms")
-#: most device kernels one round A of a batch may run at levels 6 and 12
-ROUND_A_KERNELS_MAX = 1200
+ROUND_A = ("fields", "probe", "extend", "mark_path", "histograms")
+#: round A's candidate-search wrappers, held against their plain versions
+CANDIDATE_SEARCH = ("fields", "probe", "extend")
+#: most device kernels one round A of a batch may run at levels 6 and 12:
+#: 214 since the fields kernel took the record build's ~220 (436 before)
+ROUND_A_KERNELS_MAX = 240
 
 
 def card_line() -> str:
@@ -478,21 +484,44 @@ def round_a_rows(arr, case: str):
 
 
 def round_a_calls(torch, dev, arr, case: str, kw: dict) -> dict:
-    """The probe's and extend's (args, kwargs) in an eager round A
-    (``lz77_analyze.eager``: a replay of its program calls no wrapper) of
-    the case's batch on ``dev``."""
+    """The fields', probe's and extend's (args, kwargs) in an eager round
+    A (``lz77_analyze.eager``: a replay of its program calls no wrapper)
+    of the case's batch on ``dev``."""
     from decompress_tpu_torch.ops import lz77, probe_cu
 
     *rows, seg = round_a_rows(arr, case)
     rows = [torch.from_numpy(a).to(dev) for a in rows]
-    return captured_args(probe_cu, ("probe", "extend"),
+    return captured_args(probe_cu, CANDIDATE_SEARCH,
                          lambda: lz77.lz77_analyze.eager(*rows, seg_len=seg, **kw))
 
 
+def record_bytes(args, kw) -> int:
+    """Bytes of the probe records a function must move: the R - 1 fields
+    a record holds (the key carries the word), not the short ladder's
+    padding."""
+    from decompress_tpu_torch.ops import probe_cu
+
+    b, t = args[0].shape
+    return b * t * 4 * (probe_cu.RECORD_WIDTH[kw["full_ladder"]] - 1)
+
+
+def candidate_bound_bytes(name, args, kw, out) -> int:
+    """The bytes fields, probe or extend must move on these inputs: every
+    input read once and every output written once, the records counted
+    by their fields (record_bytes)."""
+    moved = sum(t.nbytes for t in tensors(args) + tensors(out))
+    if name == "fields":
+        return moved - out[2].nbytes + record_bytes(args, kw)
+    if name == "probe":
+        return moved - args[2].nbytes + record_bytes(args, kw)
+    return moved
+
+
 def round_a_checks(torch, dev, arr, production, card) -> dict:
-    """Phase 3, round A's candidate search: probe and extend == their
-    plain versions on the arguments round A gives them (ROUND_A_CASES),
-    times on the level-6 production batch and device times at levels 4
+    """Phase 3, round A's candidate search: fields, probe and extend ==
+    their plain versions on the arguments round A gives them
+    (ROUND_A_CASES), times on the level-6 production batch (the bound
+    counting the records by their fields) and device times at levels 4
     and 12; then round A's device kernels and wall a batch at levels 4, 6
     and 12."""
     from decompress_tpu_torch import de
@@ -506,16 +535,17 @@ def round_a_checks(torch, dev, arr, production, card) -> dict:
     def keyword_call(fn):
         return lambda args, kw: fn(*args, **kw)
 
-    def present(out):
-        return tuple(a for a in out if a is not None)
+    def present(out):  # the output tensors, fields' span tuple flattened
+        return tuple(tensors(out))
 
     stats = {}
-    for name in ("probe", "extend"):
+    for name in CANDIDATE_SEARCH:
         kernel = keyword_call(getattr(probe_cu, name))
         args = [f[name] for f in found]
-        stats[name] = check_kernel(torch, name, kernel,
-                                   keyword_call(getattr(probe_cu, f"{name}_plain")), args,
-                                   present, card=card, plain_iters=3)
+        stats[name] = check_kernel(
+            torch, name, kernel, keyword_call(getattr(probe_cu, f"{name}_plain")), args,
+            present, card=card, plain_iters=3,
+            moved_bytes=candidate_bound_bytes(name, *args[0], kernel(*args[0])))
         for level in (4, 12):
             split, _ = device_split(torch, lambda: kernel(*args[at_level[level]]))
             stats[name][f"device_ms_level_{level}"] = sum(split.values())
@@ -1989,13 +2019,15 @@ def main() -> int:
     # ---- 4. the main paths: level 4, then the default level 6 ----
     from decompress_tpu_torch.ops import probe_cu
 
-    wrappers = ("mark_path", "histograms", "litbits", "gain", "build_slots", "probe", "extend")
-    with no_cuda_in_plain(probe_cu, ("probe_plain", "extend_plain")):
+    wrappers = ("mark_path", "histograms", "litbits", "gain", "build_slots", "fields", "probe",
+                "extend")
+    with no_cuda_in_plain(probe_cu, ("fields_plain", "probe_plain", "extend_plain")):
         main_path(torch, data, 4, ROUND_A + ("build_slots",), card)
         launches, gz_out = main_path(torch, data, None, wrappers, card)
-    if not launches["probe"] == launches["extend"] >= 9:
-        raise AssertionError(f"the level-6 path ran round A's kernels {launches['probe']} and "
-                             f"{launches['extend']} times for its 9 batches")
+    if not launches["fields"] == launches["probe"] == launches["extend"] >= 9:
+        raise AssertionError(f"the level-6 path ran round A's kernels {launches['fields']}, "
+                             f"{launches['probe']} and {launches['extend']} times for its 9 "
+                             f"batches")
 
     # ---- 5. where the time goes ----
     from decompress_tpu_torch import gz

@@ -47,6 +47,7 @@ _SIGNATURES = {
     "dtt_inflate_rows": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                          _P, _P, _P, _P, _I, _P),
     "dtt_crc_rows": (_P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P),
+    "dtt_fields": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "dtt_probe": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dtt_extend": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _P),

@@ -24,7 +24,10 @@ one replay of a ``torch.cuda.CUDAGraph``:
   the dispatch-ahead schedules keep several batches of one key in flight
   (``de._deflate_pipelined``, the sharded writer's windowed chunks): the
   next replay overwrites the static outputs while an earlier batch's
-  round B, pack or host read still uses its own.
+  round B, pack or host read still uses its own.  A replay waits on the
+  stream for the key's previous replay (an event recorded after its
+  clones), so callers on other streams cannot copy into the static
+  inputs, or run the graph on its buffers, under a replay still running.
 * **Launch counts.**  A replay runs no wrapper, so the capture's delta of
   ``_build.LAUNCHES`` is taken back out after the capture (a capture
   executes nothing) and added again on every replay.
@@ -117,13 +120,19 @@ class Captured:
     launches: collections.Counter
     capture_s: float
     pool_bytes: int
+    #: recorded after each replay's clones, on that replay's stream
+    done: torch.cuda.Event = dataclasses.field(default_factory=torch.cuda.Event)
 
     def replay(self, leaves: list):
+        stream = torch.cuda.current_stream()
+        stream.wait_event(self.done)  # the key's previous replay, on any stream
         for static, x in zip(self.inputs, leaves):
             static.copy_(x)
         self.graph.replay()
         _build.LAUNCHES.update(self.launches)
-        return _unflatten(self.spec, iter([o.clone() for o in self.outputs]))
+        out = _unflatten(self.spec, iter([o.clone() for o in self.outputs]))
+        self.done.record(stream)
+        return out
 
 
 class Program:

@@ -5,6 +5,9 @@ Counterpart of ``decompress_tpu/ops/lz77.py`` for every level (1-12) and
 the ``rle``/``huffman_only`` strategy slots.  The algorithm is the
 reference's, array for array, batched over segments instead of vmapped:
 
+* the words, fingerprints, probe records, keys and small-distance run
+  lengths of every position, from the bytes alone: the fields kernel of
+  ``probe_cu``;
 * hash4 of every position, one sort of a packed ``(hash, pos)`` key: a
   position's K most recent same-hash predecessors are its K previous
   sorted rows, probed in rank space with the grade ladder (the short one
@@ -26,9 +29,8 @@ reference's, array for array, batched over segments instead of vmapped:
   hot-stride mining from round A's histograms, then the cost-aware
   re-parse (literal bits and match gains in ``cost_cu``).
 
-uint32 arithmetic (hashes, fingerprints) runs in int64 masked to 32
-bits: torch has no wrapping uint32 multiply, and int32 shifts are
-arithmetic.
+uint32 arithmetic (hashes) runs in int64 masked to 32 bits: torch has
+no wrapping uint32 multiply, and int32 shifts are arithmetic.
 
 Round A, round B, the trims and the re-parse are programs of
 ``ops/graphs``, as the reference jits them: on a CUDA device each call
@@ -47,6 +49,7 @@ import torch
 from ..core import huffman, tables
 
 from . import cost_cu, graphs, hist_cu, parse_cu, probe_cu, transfer
+from .probe_cu import _hash15, _run_lengths, _suffix_min, key_bits
 
 # Copies of the reference's byte-deciding constants (ops/lz77.py cannot be
 # imported without JAX); tests/test_torch_lz77.py holds them equal.
@@ -54,19 +57,10 @@ HIST = 32768          # history prefix per segment (DEFLATE window)
 MIN_MATCH = 3
 MAX_MATCH = 258
 TOO_FAR = 4096        # don't take length-3 matches farther than this
-HASH_BITS = 15
-#: hash / fingerprint multiplier (Knuth's golden-ratio constant)
-HASH_MUL = 2654435761
-#: fingerprint premix multiplier applied to the raw words first
-PREMIX_MUL = 2246822519
-#: rotate-left amount of the fingerprint combine
-MIX_ROT = 13
 #: exact-distance histogram width for hot-stride mining (round B)
 HOT_DIST_BINS = 4096
 #: strided-run candidates mined per segment in round B
 HOT_DISTS = 8
-
-_M32 = 0xFFFFFFFF
 
 
 @dataclass(frozen=True)
@@ -121,90 +115,6 @@ def _ceil_pow2(n: int) -> int:
     return p
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for int64 x in [0, 2^32) without int64 overflow:
-    only the low 16 bits of x * (c >> 16) survive the shift by 16."""
-    lo = x * (c & 0xFFFF)
-    hi = (x * (c >> 16)) & 0xFFFF
-    return (lo + (hi << 16)) & _M32
-
-
-def _u32_words(b: torch.Tensor) -> torch.Tensor:
-    """4-byte little-endian word at every position of uint8[B, T], as
-    int64 (wraps at the row end; validity clamps mask the wrap)."""
-    x = b.to(torch.int64)
-    return (x | (torch.roll(x, -1, 1) << 8) | (torch.roll(x, -2, 1) << 16)
-            | (torch.roll(x, -3, 1) << 24))
-
-
-def _mix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Combine two span fingerprints: (a ^ rotl13(b)) * HASH_MUL."""
-    rot = ((b << MIX_ROT) & _M32) | (b >> (32 - MIX_ROT))
-    return _mul32(a ^ rot, HASH_MUL)
-
-
-#: fingerprint span lengths (powers of two up to MAX_MATCH)
-_FP_SPANS = (4, 8, 16, 32, 64, 128, 256)
-
-
-def _fingerprints(w: torch.Tensor) -> dict[int, torch.Tensor]:
-    """F[L][:, i] = fingerprint of bytes [i, i+L); F[4] is the exact word.
-    The doubling chain starts from a premultiplied copy of the word."""
-    fp = {4: w}
-    cur = _mul32(w, PREMIX_MUL)
-    for span in _FP_SPANS[1:]:
-        cur = _mix(cur, torch.roll(cur, -(span // 2), 1))
-        fp[span] = cur
-    return fp
-
-
-def _hash15(w: torch.Tensor) -> torch.Tensor:
-    """The HASH_BITS-bit bucket hash of a (masked) word."""
-    return _mul32(w, HASH_MUL) >> (32 - HASH_BITS)
-
-
-def _h16(x: torch.Tensor) -> torch.Tensor:
-    """16-bit hash of a uint32 value (the full ladder's probe halves)."""
-    return _mul32(x, HASH_MUL) >> 16
-
-
-def _pack2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Two 16-bit hashes in one uint32 value: h16(a) high, h16(b) low."""
-    return (_h16(a) << 16) | _h16(b)
-
-
-def _probe_fields(w, fp, full_ladder: bool) -> tuple[torch.Tensor, ...]:
-    """The ladder's probe fields at every position.  Short ladder: the
-    exact words at +0 and +4, the 16- and 64-byte fingerprints.  Full
-    ladder: the exact words and the 16-byte fingerprint, then six packed
-    16-bit hash pairs (offset fingerprints between the power-of-two
-    spans; the hi half of the last covers bytes [192, 224))."""
-    def ahead(a, k):
-        return torch.roll(a, -k, 1)
-
-    if not full_ladder:
-        return w, ahead(w, 4), fp[16], fp[64]
-    return (w, ahead(w, 4), fp[16],
-            _pack2(ahead(w, 6), ahead(fp[8], 4)),
-            _pack2(ahead(w, 10), ahead(w, 16)),
-            _pack2(ahead(fp[16], 8), fp[32]),
-            _pack2(ahead(fp[16], 32), fp[64]),
-            _pack2(ahead(fp[32], 64), fp[128]),
-            _pack2(ahead(fp[32], 192), ahead(fp[64], 128)))
-
-
-def _suffix_min(x: torch.Tensor) -> torch.Tensor:
-    """Reverse cumulative minimum along the last axis."""
-    return torch.flip(torch.cummin(torch.flip(x, (-1,)), -1).values, (-1,))
-
-
-def _run_lengths(eq: torch.Tensor) -> torch.Tensor:
-    """out[..., i] = length of the run of True starting at i (int32)."""
-    n = eq.shape[-1]
-    idx = torch.arange(n, device=eq.device)
-    return (_suffix_min(torch.where(eq, n, idx)) - idx).to(torch.int32)
-
-
 def _shift_right(a: torch.Tensor, k: int, fill: int) -> torch.Tensor:
     """a shifted right by k along axis 1 (the previous-rank neighbour)."""
     return torch.cat([torch.full_like(a[:, :k], fill), a[:, :a.shape[1] - k]],
@@ -215,7 +125,7 @@ def _sort_key(h: torch.Tensor, t: int) -> tuple[torch.Tensor, int]:
     """(skey, pos_bits): the rows' ``hash << pos_bits | pos`` keys,
     sorted.  One int64 key gives the reference's ``(hash, pos)`` order on
     both of its sort branches, for every segment length."""
-    pos_bits = max(1, (t - 1).bit_length())
+    pos_bits = key_bits(t)
     pos = torch.arange(t, device=h.device)
     return torch.sort((h << pos_bits) | pos, dim=1).values, pos_bits
 
@@ -230,38 +140,30 @@ def _match_candidates(data, valid_lo, valid_hi, cfg: LevelConfig,
     fingerprint descent or the ladder floor may overestimate on a
     collision; callers run the exact verification pass.
 
-    The words, fingerprints, probe records and the two sorts are torch;
-    the K-rank probe and the winner's extension with the merges are the
-    two kernels of ``probe_cu``; the run lengths (a suffix scan) and the
-    hash3 candidates (a sort) are their inputs."""
+    The fields kernel of ``probe_cu`` builds the words, probe records,
+    keys, span fingerprints and run lengths from the bytes; the keys'
+    sort and the hash3 candidates (their own sort) are torch; the K-rank
+    probe and the winner's extension with the merges are the other two
+    kernels of ``probe_cu``."""
     t = data.shape[1]
-    w = _u32_words(data)
-    fp = _fingerprints(w)
+    mode = "exact" if cfg.exact else "rec" if cfg.full_ladder else "span"
+    w, key, rec, spans, runs = probe_cu.fields(
+        data.contiguous(), hist=hist, full_ladder=cfg.full_ladder, spans=mode == "span",
+        runs=cfg.runs)
 
     # ---- sorted-bucket candidates, probed in rank space: the probe
-    # kernel gathers each rank's [R] record of the probe fields ----
-    skey, pos_bits = _sort_key(_hash15(w), t)
-    rec = torch.stack(_probe_fields(w, fp, cfg.full_ladder), 2).to(torch.int32)
+    # kernel gathers each rank's record of the probe fields ----
+    skey = torch.sort(key, dim=1).values
+    del key
     top2 = cfg.top2 and not cfg.exact  # the runner-up feeds only "rec"
     packed, packed2 = probe_cu.probe(
-        skey, pos_bits, rec, valid_lo, valid_hi, hist=hist, max_dist=max_dist,
+        skey, key_bits(t), rec, valid_lo, valid_hi, hist=hist, max_dist=max_dist,
         k=cfg.k_candidates, full_ladder=cfg.full_ladder, top2=top2)
     del skey, rec
 
-    runs = None
-    if cfg.runs:
-        # exact small-distance (RLE-ish) run lengths, payload only
-        eqs = torch.stack(
-            [(data == torch.roll(data, d, 1))[:, hist:] for d in (1, 2, 3, 4)])
-        runs = _run_lengths(eqs)
     cand3 = None
     if cfg.hash3:
         cand3 = _hash3_candidates(w, valid_lo, valid_hi, max_dist, hist)
-
-    mode = "exact" if cfg.exact else "rec" if cfg.full_ladder else "span"
-    spans = None
-    if mode == "span":
-        spans = tuple(fp[span] for span in (128, 64, 32, 16, 8))
     return probe_cu.extend(w, packed, packed2, spans, runs, cand3, valid_lo,
                            valid_hi, hist=hist, mode=mode)
 

@@ -1,15 +1,24 @@
-"""Round A's candidate search on the card: the rank-space probe of the
-sorted hash buckets, then the winner's exact extension.
+"""Round A's candidate search on the card: the probe record of every
+position, the rank-space probe of the sorted hash buckets, then the
+winner's exact extension.
 
 The reference runs this part of ``decompress_tpu/ops/lz77.py:
 _match_candidates`` as XLA inside the ``jax.jit`` of ``lz77_analyze``:
-its ``probe_step`` (``lz77.py:354``), a ``lax.scan`` over the K previous
-sorted ranks, then the packed-winner scatter, the ``descend`` of the
-winner (``lz77.py:570``) or its exact linear extension, and the runs,
-hash3 and clamp merges.  On the TPU that scan is one compiled loop; as
-eager torch it was ~150 launches per k over ``[B, T]`` int64 arrays.
-Here it is two kernels of ``csrc/probe.cu``:
+the words and the fingerprint pyramid (``lz77.py:174``, ``:206``), the
+probe fields and the sort key (``:283-330``), the run lengths
+(``:515``), its ``probe_step`` (``lz77.py:354``), a ``lax.scan`` over the
+K previous sorted ranks, then the packed-winner scatter, the ``descend``
+of the winner (``lz77.py:570``) or its exact linear extension, and the
+runs, hash3 and clamp merges.  On the TPU each is part of one compiled
+program; as eager torch the record build was ~200 launches and the scan
+~150 launches per k over ``[B, T]`` int64 arrays.  Here it is three
+kernels of ``csrc/probe.cu``:
 
+* :func:`fields`: one block per tile of positions of a row stages the
+  tile's bytes with their halo (indices mod T) in shared memory and
+  builds, in uint32, the words, the fingerprint pyramid, the probe
+  records, the unsorted sort keys, the span walk's fingerprints and the
+  capped run lengths, each written once.
 * :func:`probe`: one block per tile of ranks of a row stages the ranks'
   positions, hashes and probe records (the tile and the K ranks before
   it) in shared memory, then each thread walks its rank's K
@@ -26,10 +35,25 @@ Here it is two kernels of ``csrc/probe.cu``:
   merges the small-distance runs and the hash3 candidate and clamps.
 
 The plain versions are round A's torch code as it was, moved here
-unchanged but for their arguments: :func:`probe_plain` (the K loop,
-:func:`_pack_winner` and the scatter to position space) and
-:func:`extend_plain`.  The prefix sums they need (the runs' suffix scan
-and hash3's sort) stay torch in ``lz77._match_candidates``.
+unchanged but for their arguments: :func:`fields_plain` (the words,
+fingerprints, probe fields, their stack and the key, and the run
+lengths), :func:`probe_plain` (the K loop, :func:`_pack_winner` and the
+scatter to position space) and :func:`extend_plain`.  The sort of the
+keys and hash3's candidates (its own sort) stay torch in
+``lz77._match_candidates``.  uint32 arithmetic (hashes, fingerprints)
+runs there in int64 masked to 32 bits: torch has no wrapping uint32
+multiply, and int32 shifts are arithmetic.
+
+Sort key and probe record.  The ladder has R probe fields a position (R
+= 4 on the short ladder, 9 on the full one); the first is the word w.
+The key ``hash15 << (pos_bits + KEY_LOW) | pos << KEY_LOW | m & (2^KEY_LOW
+- 1)``, with m = w * HASH_MUL mod 2^32 (hash15 is m's top bits), sorts as
+``(hash15, pos)`` does, since positions are unique, and carries all of m:
+w = m * HASH_MUL_INV.  So the record (int32, uint32 values) holds the
+other R - 1 fields, padded with a zero to :data:`RECORD_STRIDE` 4 words
+on the short ladder and exactly 8 (32 bytes, one sector of device
+memory) on the full one: the probe kernel's random gather of a record
+costs one sector, where the 9 fields took two.
 
 Packed winner word (int64): ``cand << 12 | floor << 3 | tier << 1 |
 has``; ``floor`` is the ladder grade (a length floor, at most 224),
@@ -48,10 +72,26 @@ from .. import _build
 #: csrc/probe.cu; a copy of ``lz77.TOO_FAR``, which imports this module;
 #: tests/test_torch_probe.py holds both equal to the reference's)
 TOO_FAR = 4096
+# Copies of the reference's byte-deciding hash constants (``kHashBits``,
+# ``kHashMul``, ``kPremixMul``, ``kMixRot`` in csrc/probe.cu);
+# tests/test_torch_lz77.py holds them equal.
+HASH_BITS = 15
+#: hash / fingerprint multiplier (Knuth's golden-ratio constant)
+HASH_MUL = 2654435761
+#: fingerprint premix multiplier applied to the raw words first
+PREMIX_MUL = 2246822519
+#: rotate-left amount of the fingerprint combine
+MIX_ROT = 13
+#: fingerprint span lengths (powers of two up to MAX_MATCH)
+_FP_SPANS = (4, 8, 16, 32, 64, 128, 256)
+#: the span walk's fingerprints, in the order extend takes them
+SPAN_FPS = (128, 64, 32, 16, 8)
 #: the "no candidate" score
 NEG_INF = -(1 << 30)
 #: the packed word of a position with no winner (tier 1, nothing else)
 NO_WINNER = 1 << 1
+#: positions per block of the fields kernel (``kFieldsTile``)
+FIELDS_TILE = 1024
 #: ranks per block of the probe kernel (``kTile`` in csrc/probe.cu)
 TILE = 256
 #: most predecessors the probe kernel takes (its shared memory holds the
@@ -59,9 +99,169 @@ TILE = 256
 MAX_K = 512
 #: resolution of the winner's length: by level config
 MODES = ("exact", "rec", "span")
-#: record width per ladder: short (levels 1-4), full (levels 5-12)
+#: probe fields per ladder: short (levels 1-4), full (levels 5-12)
 RECORD_WIDTH = {False: 4, True: 9}
+#: int32 words a record takes: fields 1..R-1, the short ladder's padded to 4
+RECORD_STRIDE = {False: 4, True: 8}
+#: bits of m = w * HASH_MUL below the position in the probe's sort key
+#: (``kKeyLow`` in csrc/probe.cu): m's bits under hash15
+KEY_LOW = 32 - HASH_BITS
+#: the inverse of HASH_MUL mod 2^32: w = m * HASH_MUL_INV
+HASH_MUL_INV = pow(HASH_MUL, -1, 1 << 32)
 _M32 = 0xFFFFFFFF
+
+
+def key_bits(t: int) -> int:
+    """Bits a row's positions take in its sort keys (``pos_bits``)."""
+    return max(1, (t - 1).bit_length())
+
+
+def key_parts(skey, pos_bits: int):
+    """(pos, hash15, w) of the probe's sort keys (see the module docstring)."""
+    low = skey & ((1 << KEY_LOW) - 1)
+    h = skey >> (pos_bits + KEY_LOW)
+    return ((skey >> KEY_LOW) & ((1 << pos_bits) - 1), h,
+            _mul32((h << KEY_LOW) | low, HASH_MUL_INV))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) without int64 overflow:
+    only the low 16 bits of x * (c >> 16) survive the shift by 16."""
+    lo = x * (c & 0xFFFF)
+    hi = (x * (c >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _u32_words(b: torch.Tensor) -> torch.Tensor:
+    """4-byte little-endian word at every position of uint8[B, T], as
+    int64 (wraps at the row end; validity clamps mask the wrap)."""
+    x = b.to(torch.int64)
+    return (x | (torch.roll(x, -1, 1) << 8) | (torch.roll(x, -2, 1) << 16)
+            | (torch.roll(x, -3, 1) << 24))
+
+
+def _mix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Combine two span fingerprints: (a ^ rotl13(b)) * HASH_MUL."""
+    rot = ((b << MIX_ROT) & _M32) | (b >> (32 - MIX_ROT))
+    return _mul32(a ^ rot, HASH_MUL)
+
+
+def _fingerprints(w: torch.Tensor) -> dict[int, torch.Tensor]:
+    """F[L][:, i] = fingerprint of bytes [i, i+L); F[4] is the exact word.
+    The doubling chain starts from a premultiplied copy of the word."""
+    fp = {4: w}
+    cur = _mul32(w, PREMIX_MUL)
+    for span in _FP_SPANS[1:]:
+        cur = _mix(cur, torch.roll(cur, -(span // 2), 1))
+        fp[span] = cur
+    return fp
+
+
+def _hash15(w: torch.Tensor) -> torch.Tensor:
+    """The HASH_BITS-bit bucket hash of a (masked) word."""
+    return _mul32(w, HASH_MUL) >> (32 - HASH_BITS)
+
+
+def _h16(x: torch.Tensor) -> torch.Tensor:
+    """16-bit hash of a uint32 value (the full ladder's probe halves)."""
+    return _mul32(x, HASH_MUL) >> 16
+
+
+def _pack2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Two 16-bit hashes in one uint32 value: h16(a) high, h16(b) low."""
+    return (_h16(a) << 16) | _h16(b)
+
+
+def _probe_fields(w, fp, full_ladder: bool) -> tuple[torch.Tensor, ...]:
+    """The ladder's probe fields at every position.  Short ladder: the
+    exact words at +0 and +4, the 16- and 64-byte fingerprints.  Full
+    ladder: the exact words and the 16-byte fingerprint, then six packed
+    16-bit hash pairs (offset fingerprints between the power-of-two
+    spans; the hi half of the last covers bytes [192, 224))."""
+    def ahead(a, k):
+        return torch.roll(a, -k, 1)
+
+    if not full_ladder:
+        return w, ahead(w, 4), fp[16], fp[64]
+    return (w, ahead(w, 4), fp[16],
+            _pack2(ahead(w, 6), ahead(fp[8], 4)),
+            _pack2(ahead(w, 10), ahead(w, 16)),
+            _pack2(ahead(fp[16], 8), fp[32]),
+            _pack2(ahead(fp[16], 32), fp[64]),
+            _pack2(ahead(fp[32], 64), fp[128]),
+            _pack2(ahead(fp[32], 192), ahead(fp[64], 128)))
+
+
+def _suffix_min(x: torch.Tensor) -> torch.Tensor:
+    """Reverse cumulative minimum along the last axis."""
+    return torch.flip(torch.cummin(torch.flip(x, (-1,)), -1).values, (-1,))
+
+
+def _run_lengths(eq: torch.Tensor) -> torch.Tensor:
+    """out[..., i] = length of the run of True starting at i (int32)."""
+    n = eq.shape[-1]
+    idx = torch.arange(n, device=eq.device)
+    return (_suffix_min(torch.where(eq, n, idx)) - idx).to(torch.int32)
+
+
+def fields_plain(data, *, hist: int, full_ladder: bool, spans: bool, runs: bool):
+    """(w, key, rec, span fingerprints or None, runs or None) of a batch;
+    see :func:`fields`."""
+    t = data.shape[1]
+    w = _u32_words(data)
+    fp = _fingerprints(w)
+    m = _mul32(w, HASH_MUL)
+    key = (((m >> KEY_LOW) << (key_bits(t) + KEY_LOW))
+           | (torch.arange(t, device=data.device) << KEY_LOW) | (m & ((1 << KEY_LOW) - 1)))
+    rec = torch.stack(_probe_fields(w, fp, full_ladder)[1:], 2).to(torch.int32)
+    rec = torch.nn.functional.pad(rec, (0, RECORD_STRIDE[full_ladder] - rec.shape[2]))
+    span_fps = tuple(fp[span] for span in SPAN_FPS) if spans else None
+    run = None
+    if runs:
+        # exact small-distance (RLE-ish) run lengths, payload only
+        eqs = torch.stack(
+            [(data == torch.roll(data, d, 1))[:, hist:] for d in (1, 2, 3, 4)])
+        run = torch.clamp(_run_lengths(eqs), max=MAX_MATCH)
+    return w, key, rec, span_fps, run
+
+
+def fields(data, *, hist: int, full_ladder: bool, spans: bool, runs: bool):
+    """Everything the probe and the extension read of a batch of segments,
+    from its bytes alone -> (w, key, rec, span fingerprints, runs).
+
+    data: uint8[B, T].  w: int64[B, T] the 4-byte little-endian word at
+    every position (wrapping at the row end); key: int64[B, T] the
+    unsorted sort keys of the probe, which carry the word (see the module
+    docstring); rec: int32[B, T, RECORD_STRIDE] the ladder's other probe
+    fields of every position; with ``spans``, the int64[B, T]
+    fingerprints of spans 128, 64, 32, 16 and 8 (else None);
+    with ``runs``, int32[4, B, T - hist] the lengths of the runs of
+    data[i] == data[i - d] (index mod T) from every payload position i,
+    d = 1..4, stopping at the row end and capped at MAX_MATCH (else
+    None).
+
+    A CPU tensor takes :func:`fields_plain`; a CUDA tensor launches the
+    kernel (or raises)."""
+    kw = dict(hist=hist, full_ladder=full_ladder, spans=spans, runs=runs)
+    if data.device.type == "cpu":
+        return fields_plain(data, **kw)
+    b, t = data.shape
+    if not 0 <= hist < t:
+        raise ValueError(f"fields: hist={hist} outside [0, T={t})")
+    _build.check_cuda("data", data, torch.uint8)
+    dev = data.device
+    w = torch.empty((b, t), dtype=torch.int64, device=dev)
+    key = torch.empty_like(w)
+    rec = torch.empty((b, t, RECORD_STRIDE[full_ladder]), dtype=torch.int32, device=dev)
+    span_fps = torch.empty((len(SPAN_FPS), b, t), dtype=torch.int64, device=dev) \
+        if spans else None
+    run = torch.empty((4, b, t - hist), dtype=torch.int32, device=dev) if runs else None
+    err = _build.lib().dtt_fields(
+        data.data_ptr(), w.data_ptr(), key.data_ptr(), rec.data_ptr(),
+        0 if span_fps is None else span_fps.data_ptr(), 0 if run is None else run.data_ptr(),
+        b, t, hist, key_bits(t), int(full_ladder), _build.stream(data))
+    _build.launched("fields", err)
+    return w, key, rec, None if span_fps is None else tuple(span_fps.unbind(0)), run
 
 
 def _prefix_bytes_equal(x: torch.Tensor) -> torch.Tensor:
@@ -124,11 +324,11 @@ def probe_plain(skey, pos_bits: int, rec, valid_lo, valid_hi, *, hist: int,
                 max_dist: int, k: int, full_ladder: bool, top2: bool):
     """The packed winner of every payload position by the K loop in rank
     space; see :func:`probe`."""
-    sp, sh = skey & ((1 << pos_bits) - 1), skey >> pos_bits
+    sp, sh, w_s = key_parts(skey, pos_bits)
     t = sp.shape[1]
-    fields = rec.to(torch.int64) & _M32
-    probes = torch.gather(
-        fields, 1, sp[:, :, None].expand(-1, -1, fields.shape[2])).unbind(2)
+    fields = rec[:, :, :RECORD_WIDTH[full_ladder] - 1].to(torch.int64) & _M32
+    probes = (w_s, *torch.gather(
+        fields, 1, sp[:, :, None].expand(-1, -1, fields.shape[2])).unbind(2))
     del fields
 
     sp_ok = sp < valid_hi
@@ -191,9 +391,9 @@ def probe(skey, pos_bits: int, rec, valid_lo, valid_hi, *, hist: int,
     """Best of the K previous ranks of every payload position's sorted
     bucket -> (packed int64[B, T - hist], packed2 or None).
 
-    skey: int64[B, T] sorted keys ``hash << pos_bits | pos``; rec:
-    int32[B, T, R] the ladder's probe fields of every position (R = 4 on
-    the short ladder, 9 on the full one; uint32 values in int32);
+    skey: int64[B, T] the sorted keys of :func:`fields` (see the module
+    docstring); rec: int32[B, T, RECORD_STRIDE] the probe records of
+    every position from :func:`fields`;
     valid_lo, valid_hi: int64[B, 1].  A candidate k ranks before rank r
     counts if it has r's hash, lies in [valid_lo, valid_hi) within
     ``max_dist`` of r's position (itself below valid_hi) and shares at
@@ -211,13 +411,16 @@ def probe(skey, pos_bits: int, rec, valid_lo, valid_hi, *, hist: int,
               top2=top2)
     if skey.device.type == "cpu":
         return probe_plain(skey, pos_bits, rec, valid_lo, valid_hi, **kw)
-    r = RECORD_WIDTH[full_ladder]
     if not 0 < k <= MAX_K:
         raise ValueError(f"probe: K={k} outside 1..{MAX_K}")
     if not 0 <= hist < t:
         raise ValueError(f"probe: hist={hist} outside [0, T={t})")
     _build.check_cuda("skey", skey, torch.int64)
-    _build.check_cuda("rec", rec, torch.int32, (b, t, r))
+    _build.check_cuda("rec", rec, torch.int32, (b, t, RECORD_STRIDE[full_ladder]))
+    if rec.data_ptr() % 16:
+        raise ValueError("probe: rec must start at a 16-byte boundary")
+    if pos_bits + KEY_LOW + HASH_BITS > 63:
+        raise ValueError(f"probe: pos_bits={pos_bits} leaves the key no room")
     _build.check_cuda("valid_lo", valid_lo, torch.int64, (b, 1))
     _build.check_cuda("valid_hi", valid_hi, torch.int64, (b, 1))
     packed = torch.empty((b, t - hist), dtype=torch.int64, device=skey.device)
@@ -225,7 +428,7 @@ def probe(skey, pos_bits: int, rec, valid_lo, valid_hi, *, hist: int,
     err = _build.lib().dtt_probe(
         skey.data_ptr(), rec.data_ptr(), valid_lo.data_ptr(), valid_hi.data_ptr(),
         packed.data_ptr(), 0 if packed2 is None else packed2.data_ptr(),
-        b, t, hist, pos_bits, max_dist, k, r, _build.stream(skey))
+        b, t, hist, pos_bits, max_dist, k, RECORD_WIDTH[full_ladder], _build.stream(skey))
     _build.launched("probe", err)
     return packed, packed2
 

@@ -41,15 +41,21 @@ on whole-member rows against its plain version.  The captured programs
 (``ops/graphs``) at the main paths' shapes (``chip_smoke.program_cases``):
 every replay equal to its eager function, exactly; a replay of other
 inputs leaving an earlier result as it was; each replay adding its
-capture's launches; a capture that syncs raising every time; the LRU
-evicting and capturing again.
+capture's launches; two threads, each on its own stream, replaying one
+round-A key on different inputs; a capture that syncs raising every
+time; the LRU evicting and capturing again.  Round A's candidate search
+(fields, probe, extend) on the arguments round A gives it
+(``chip_smoke.ROUND_A_CASES``) and on short rows of 150, 4,097 and
+4,999 bytes (text, one repeated byte, random) with and without history.
 """
 
 import collections
+import dataclasses
 import functools
 import gzip
 import hashlib
 import pathlib
+import threading
 import zlib
 
 import numpy as np
@@ -253,6 +259,71 @@ def test_probe_and_extend_kernels(dev, case, kw):
         assert int((outs["probe"][0][1:3] & 1).sum()) < 64
 
 
+def _same_fields(got, want):
+    """fields' outputs (w, key, rec, spans, runs) equal, None where None."""
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if isinstance(w, tuple):
+            assert len(g) == len(w) and all(torch.equal(a, b) for a, b in zip(g, w))
+        elif w is not None:
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case,kw", chip_smoke.ROUND_A_CASES)
+def test_fields_kernel(dev, case, kw):
+    """The fields kernel equals fields_plain on the bytes round A gives it
+    (an all-zero row among the extremes: runs of 258 everywhere)."""
+    calls = chip_smoke.round_a_calls(torch, dev, np.frombuffer(_corpus_8mib(), np.uint8),
+                                     case, kw)
+    args, k = calls["fields"]
+    before = _build.LAUNCHES["fields"]
+    got = probe_cu.fields(*args, **k)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fields"] == before + 1
+    _same_fields(got, probe_cu.fields_plain(*args, **k))
+
+
+def _small_rows(t):
+    """uint8[3, t]: corpus text, one repeated byte, random bytes."""
+    raw = np.frombuffer((CORPUS / "paper1").read_bytes(), np.uint8)
+    data = np.zeros((3, t), np.uint8)
+    data[0] = raw[5000:5000 + t]
+    data[1] = 0x61
+    data[2] = np.random.default_rng(16).integers(0, 256, t, dtype=np.uint8)
+    return data
+
+
+@pytest.mark.parametrize("t", [4999, 4097, 150])
+@pytest.mark.parametrize("hist", [0, 100])
+@pytest.mark.parametrize("level,force_exact", [
+    (1, False), (4, False), (6, False), (12, False), (4, True), (6, True)])
+def test_candidate_search_kernels_small(dev, level, force_exact, hist, t):
+    """fields, probe and extend equal their plain versions in
+    ``_match_candidates`` of short rows (T off every tile, just over a
+    power of two, under the 223 bytes a record reads), with and without
+    history."""
+    cfg = lz77.level_config(level)
+    if force_exact:
+        cfg = dataclasses.replace(cfg, exact=True)
+    data = torch.from_numpy(_small_rows(t)).to(dev)
+    lim = torch.tensor([[0], [hist], [hist]], dtype=torch.int64, device=dev)
+    calls = chip_smoke.captured_args(
+        probe_cu, chip_smoke.CANDIDATE_SEARCH,
+        lambda: lz77._match_candidates(data, lim, torch.full_like(lim, t), cfg,
+                                       max_dist=1 << 15, hist=hist))
+    args, k = calls["fields"]
+    _same_fields(probe_cu.fields(*args, **k), probe_cu.fields_plain(*args, **k))
+    for name in ("probe", "extend"):
+        args, k = calls[name]
+        got, want = getattr(probe_cu, name)(*args, **k), getattr(probe_cu, f"{name}_plain")(
+            *args, **k)
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if w is not None:
+                assert torch.equal(g, w), name
+
+
 def test_probe_and_extend_reject_bad_tensors(dev):
     skey = torch.zeros((2, 100), dtype=torch.int64, device=dev)
     lim = torch.zeros((2, 1), dtype=torch.int64, device=dev)
@@ -271,6 +342,16 @@ def test_probe_and_extend_reject_bad_tensors(dev):
     with pytest.raises(ValueError):
         probe_cu.extend(w, packed[:, 1:], None, None, None, None, lim, lim, hist=10,
                         mode="rec")
+    with pytest.raises(ValueError):  # the full ladder's record is 8 words
+        probe_cu.probe(skey, 7, rec, lim, lim, k=8, **kw)
+    data = torch.zeros((2, 100), dtype=torch.uint8, device=dev)
+    fkw = dict(full_ladder=True, spans=False, runs=True)
+    with pytest.raises(TypeError):
+        probe_cu.fields(data.to(torch.int32), hist=10, **fkw)
+    with pytest.raises(ValueError):
+        probe_cu.fields(data, hist=100, **fkw)
+    with pytest.raises(ValueError):
+        probe_cu.fields(data[:, ::2], hist=10, **fkw)
 
 
 def test_wrappers_reject_bad_tensors(dev):
@@ -758,12 +839,52 @@ def test_replays_count_the_captured_launches(program_cases):
     prog(*args, **kw)
     eager = _build.LAUNCHES - before
     (entry,) = graphs.captured(0)
-    assert entry.launches == eager and set(eager) == {"probe", "extend", "mark_path",
-                                                      "histograms"}
+    assert entry.launches == eager and set(eager) == {"fields", "probe", "extend",
+                                                      "mark_path", "histograms"}
+    assert eager["fields"] == 1
     _build.LAUNCHES.clear()
     prog(*args, **kw)
     prog(*args, **kw)
     assert _build.LAUNCHES == collections.Counter({k: 2 * n for k, n in eager.items()})
+
+
+def test_replays_on_two_streams_from_two_threads(program_cases):
+    """Two threads, each on its own CUDA stream, replay one round-A key
+    (level 6, the production batch) on different inputs, several times
+    each, started together: every result equals the eager function's on
+    its own inputs, so no replay's copy into the key's static inputs lands
+    under another stream's running replay."""
+    _, prog, args, kw = program_cases[0]
+    inputs = [list(args), [torch.roll(a, 1, 0) for a in args]]
+    want = [prog.eager(*a, **kw) for a in inputs]
+    prog(*args, **kw)  # the key is captured before the threads start
+    torch.cuda.synchronize()
+    results: list = [[], []]
+    errors: list = []
+    start = threading.Barrier(2)
+
+    def run(i):
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                start.wait()
+                for _ in range(6):
+                    results[i].append(prog(*inputs[i], **kw))
+            stream.synchronize()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for i in range(2):
+        assert len(results[i]) == 6
+        for got in results[i]:
+            assert chip_smoke.same_leaves(torch, got, want[i]), i
 
 
 @graphs.program()

@@ -22,7 +22,10 @@ sizes under :class:`HostSyncAudit`, a ``TorchFunctionMode`` and a
 
 The audit fires on each kind of host read and on an upload from host
 memory inside the region, as the fixed step made before its tables were
-hoisted.  The key of a call changes with each static argument, shape,
+hoisted.  Round A (each case above and the B = 1 tail) builds its
+words, records, keys and runs in one ``probe_cu.fields`` call, and no
+operator of the torch record build (``roll``, ``stack``, the runs'
+``flip``/``cummin``) runs outside it.  The key of a call changes with each static argument, shape,
 dtype, device and ``None``-ness, and with nothing else.  On the CPU a
 program is its function: its results equal the undecorated function's,
 and nothing is captured.  The card half (replays equal to the eager
@@ -39,7 +42,7 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from decompress_tpu_torch import de
-from decompress_tpu_torch.ops import graphs, lz77, pipeline
+from decompress_tpu_torch.ops import graphs, lz77, pipeline, probe_cu
 from torch_threads import one_torch_thread  # noqa: F401
 
 CORPUS = pathlib.Path(__file__).parent / "corpus"
@@ -217,6 +220,49 @@ def test_program_on_cpu_is_its_function(label, prog, build):
     for g, w in zip(_leaves(got), _leaves(want)):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert sum(graphs.CAPTURES.values()) == captures
+
+
+class _OpLog(TorchDispatchMode):
+    """The aten operators run, each with whether a fields call was open."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: list = []
+        self.inside = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append((func.overloadpacket.__name__, self.inside > 0))
+        return func(*args, **(kwargs or {}))
+
+
+ROUND_A = [c for c in CASES if c[0].startswith("round A")] + [
+    ("round A B = 1 tail", lz77.lz77_analyze,
+     lambda: (_rows(b=1), dict(level=6, seg_len=SEG, hist=HIST)))]
+
+
+@pytest.mark.parametrize("label,prog,build", ROUND_A, ids=[c[0] for c in ROUND_A])
+def test_round_a_builds_its_record_in_one_fields_call(label, prog, build, monkeypatch):
+    """The record build is one fields call (on the card one launch of its
+    kernel in a replay): none of its torch operators runs outside it."""
+    args, kw = build()
+    log, calls = _OpLog(), []
+    fields = probe_cu.fields
+
+    def spy(*a, **k):
+        calls.append(k)
+        log.inside += 1
+        try:
+            return fields(*a, **k)
+        finally:
+            log.inside -= 1
+
+    monkeypatch.setattr(probe_cu, "fields", spy)
+    with log:
+        prog.eager(*args, **kw)
+    assert len(calls) == 1
+    outside = {name for name, inside in log.ops if not inside}
+    assert not outside & {"roll", "stack", "flip", "cummin"}, outside
+    assert "roll" in {name for name, inside in log.ops if inside}  # the plain build here
 
 
 def _old_fixed_upload(data):

@@ -8,8 +8,10 @@ hash3 at 6 and 9, top2 at 9, ``dist_counts``), without and with 32 KiB
 of history, with ``force_exact``, with a 1 KiB window, and through the
 repair of corrupted candidates: the greedy trim-and-reparse loop, and at
 level 6 the trim before round B, round B's retry loop and its
-exact-extension fallback.  The copied constants are held equal to the
-reference's.
+exact-extension fallback.  Round A on drawn inputs (hypothesis): corpus
+slices with runs of one byte, periodic stretches of periods 1-4 and
+mutated bytes near the row end, at levels 1-12 and windows 9-15.  The
+copied constants are held equal to the reference's.
 """
 
 import dataclasses
@@ -21,11 +23,12 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from hypothesis import HealthCheck, given, settings, strategies as st
 
 from decompress_tpu.ops import cost_pl
 from decompress_tpu.ops import lz77 as ref
 from decompress_tpu_torch import de
-from decompress_tpu_torch.ops import cost_cu, lz77
+from decompress_tpu_torch.ops import cost_cu, lz77, probe_cu
 from torch_threads import one_torch_thread  # noqa: F401
 
 SEG = 4096
@@ -94,6 +97,58 @@ def test_analyze_full_ladder_small_window_matches_reference():
                       window_bits=10)
     assert want["dist"].max() <= 1 << 10
     _assert_same(got, want)
+
+
+DRAWN_SEG, DRAWN_HIST = 2048, 1024
+
+
+@st.composite
+def _drawn_round_a(draw):
+    """(data, n_valid, hist_len, level, window_bits): two corpus slices of
+    DRAWN_HIST + DRAWN_SEG bytes, each with up to 4 mutations (a run of
+    one byte, a periodic stretch of period 1-4, bytes rewritten near the
+    row end), drawn valid lengths and histories, a level and a window."""
+    raw = np.frombuffer((CORPUS / "book1").read_bytes(), np.uint8)
+    t = DRAWN_HIST + DRAWN_SEG
+    data = np.zeros((2, t), np.uint8)
+    for r in range(2):
+        start = draw(st.integers(0, len(raw) - t))
+        row = raw[start:start + t].copy()
+        for _ in range(draw(st.integers(0, 4))):
+            kind = draw(st.sampled_from(("run", "period", "tail")))
+            at = draw(st.integers(0, t - 1))
+            n = draw(st.integers(1, 600))
+            if kind == "run":
+                row[at:at + n] = draw(st.integers(0, 255))
+            elif kind == "period":
+                pattern = np.frombuffer(draw(st.binary(min_size=1, max_size=4)), np.uint8)
+                row[at:at + n] = np.resize(pattern, len(row[at:at + n]))
+            else:  # near the row end: fresh bytes or a copy of earlier text
+                n = min(n, 300)
+                src = draw(st.integers(0, t - n))
+                row[t - n:] = (np.frombuffer(draw(st.binary(min_size=n, max_size=n)), np.uint8)
+                               if draw(st.booleans()) else row[src:src + n].copy())
+        data[r] = row
+    n_valid = np.array([DRAWN_SEG, draw(st.integers(1, DRAWN_SEG))], np.int32)
+    hist_len = np.array([draw(st.integers(0, DRAWN_HIST)) for _ in range(2)], np.int32)
+    return data, n_valid, hist_len, draw(st.integers(1, 12)), draw(st.integers(9, 15))
+
+
+@settings(deadline=None, max_examples=6, derandomize=True,
+          suppress_health_check=[HealthCheck.too_slow, HealthCheck.data_too_large])
+@given(_drawn_round_a())
+def test_analyze_drawn_inputs_match_reference(case):
+    """Round A of drawn batches equals the reference's in every output.
+    Each (level, window) costs the reference a compile (~3 s on the CPU),
+    so the examples are few and fixed (derandomized)."""
+    data, n_valid, hist_len, level, window_bits = case
+    want = ref.lz77_analyze(jnp.asarray(data), jnp.asarray(n_valid), jnp.asarray(hist_len),
+                            level=level, seg_len=DRAWN_SEG, window_bits=window_bits,
+                            hist=DRAWN_HIST)
+    got = lz77.lz77_analyze(torch.from_numpy(data), torch.from_numpy(n_valid),
+                            torch.from_numpy(hist_len), level=level, seg_len=DRAWN_SEG,
+                            window_bits=window_bits, hist=DRAWN_HIST)
+    _assert_same(got, _np_dict(want))
 
 
 def _trim_segment():
@@ -223,9 +278,11 @@ def test_round_b_repair_matches_reference(monkeypatch, corrupt, passes):
 
 
 def test_constants_match_reference():
-    for name in ("HIST", "MIN_MATCH", "MAX_MATCH", "TOO_FAR", "HASH_BITS",
-                 "_TRIM_RETRIES", "_FP_SPANS", "HOT_DIST_BINS", "HOT_DISTS"):
+    for name in ("HIST", "MIN_MATCH", "MAX_MATCH", "TOO_FAR", "_TRIM_RETRIES",
+                 "HOT_DIST_BINS", "HOT_DISTS"):
         assert getattr(lz77, name) == getattr(ref, name), name
+    for name in ("HASH_BITS", "_FP_SPANS"):  # the record build's, in probe_cu
+        assert getattr(probe_cu, name) == getattr(ref, name), name
     assert [f.name for f in dataclasses.fields(lz77.LevelConfig)] == \
         [f.name for f in dataclasses.fields(ref.LevelConfig)]
     assert set(lz77.LEVELS) == set(ref.LEVELS)
@@ -244,8 +301,8 @@ def test_hash_and_fingerprints_match_reference():
     rng = np.random.default_rng(1)
     x = rng.integers(0, 256, (2, 777), dtype=np.uint8)
     x[1, 100:400] = 0xFF
-    w = lz77._u32_words(torch.from_numpy(x))
-    fp = lz77._fingerprints(w)
+    w = probe_cu._u32_words(torch.from_numpy(x))
+    fp = probe_cu._fingerprints(w)
     for i in range(2):
         wr = ref._u32_words(jnp.asarray(x[i]))
         np.testing.assert_array_equal(w[i].numpy(), np.asarray(wr))
@@ -253,7 +310,7 @@ def test_hash_and_fingerprints_match_reference():
         for span in ref._FP_SPANS:
             np.testing.assert_array_equal(fp[span][i].numpy(), np.asarray(fr[span]))
     a, b = (rng.integers(0, 1 << 32, 1000, dtype=np.uint64) for _ in range(2))
-    got = lz77._mix(torch.from_numpy(a.astype(np.int64)),
+    got = probe_cu._mix(torch.from_numpy(a.astype(np.int64)),
                     torch.from_numpy(b.astype(np.int64)))
     want = ref._mix(jnp.asarray(a.astype(np.uint32)), jnp.asarray(b.astype(np.uint32)))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
