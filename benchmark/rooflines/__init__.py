@@ -1,0 +1,1 @@
+"""Found by name from ``BENCHMARK.json`` (``benchmark/spec.py``)."""
