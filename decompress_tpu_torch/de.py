@@ -46,6 +46,7 @@ from .core.tables import (
     WINDOW_SIZE,
 )
 from .ops import bitpack, graphs, lz77, pack_cu, transfer
+from .utils import profiling
 
 # ---------------------------------------------------------------------------
 # Host half of the reference's de.py, copied (the port imports nothing of
@@ -233,6 +234,7 @@ def compress_bound(n: int, segment_size: int | None = None) -> int:
     return n + 6 * (n // chunk + 1) + 16
 
 
+@profiling.spanned("plan.blocks", cpu=True)
 def plan_blocks(hist_lit, hist_dist, n_valid, final_flags, *, pad_to=None,
                 force_block=None, shared_tree=False):
     """Host planning for a batch of blocks: choose stored/fixed/dynamic
@@ -627,7 +629,8 @@ def deflate(data, level: int | None = None, *, segment_size: int | None = None,
     _deflate_pipelined(w, arr, nseg, level, seg, dev,
                        force_block=None if dynamic else "fixed",
                        window_bits=window_bits, dict_hist=head)
-    return w.getvalue()
+    with profiling.span("schedule.assemble"):
+        return w.getvalue()
 
 
 #: batches whose round A is dispatched ahead of the host's planning stage
@@ -719,18 +722,19 @@ def _deflate_pipelined(w, arr, nseg, level, seg, dev, force_block=None,
 
     def dispatch(lo, hi):
         keep = []  # the uploads' pinned sources, held until the batch is finished
-        if seg >= lz77.HIST:
-            payload, head, n_valid, hist_len, _ = _build_batch_payload(
-                arr, lo, hi, seg, dict_hist)
-            d_data = _assemble_batch_device(transfer.upload(payload, dev, keep),
-                                            transfer.upload(head, dev, keep))
-        else:
-            data, n_valid, hist_len, _ = _build_batch(arr, lo, hi, seg, dict_hist)
-            d_data = transfer.upload(data, dev, keep)
-        d_nv = transfer.upload(n_valid, dev, keep)
-        d_hl = transfer.upload(hist_len, dev, keep)
-        res = lz77.analyze2_start(d_data, d_nv, d_hl, level=level, seg_len=seg,
-                                  window_bits=window_bits)
+        with profiling.span("schedule.stage"):
+            if seg >= lz77.HIST:
+                payload, head, n_valid, hist_len, _ = _build_batch_payload(
+                    arr, lo, hi, seg, dict_hist)
+                d_data = _assemble_batch_device(transfer.upload(payload, dev, keep),
+                                                transfer.upload(head, dev, keep))
+            else:
+                data, n_valid, hist_len, _ = _build_batch(arr, lo, hi, seg, dict_hist)
+                d_data = transfer.upload(data, dev, keep)
+            d_nv = transfer.upload(n_valid, dev, keep)
+            d_hl = transfer.upload(hist_len, dev, keep)
+            res = lz77.analyze2_start(d_data, d_nv, d_hl, level=level, seg_len=seg,
+                                      window_bits=window_bits)
         return lo, hi, n_valid, d_data, d_nv, d_hl, res, keep
 
     inflight = collections.deque(dispatch(*bt) for bt in batches[:PIPELINE_DEPTH])
@@ -766,17 +770,18 @@ def _finish_batch(w, arr, seg_lo, final_flags, seg, n_valid, d_data, res,
     # all columns: the copy need not wait for the totals to reach the host
     totals, words = transfer.Fetch({"totals": totals, "words": words}).wait(
         "totals", "words")
-    # keep only the words used by non-stored segments
-    used = [int(totals[i]) for i in range(b) if kinds[i] != "stored"]
-    cap = (max(used) + 31) // 32 + 1 if used else 0
-    words = words[:, :cap].astype("<u4")
-    for i in range(b):
-        if kinds[i] == "stored":
-            start = (seg_lo + i) * seg
-            _emit_stored(w, arr[start: start + int(n_valid[i])],
-                         final=bool(final_flags[i]))
-        else:
-            w.write_packed(words[i].view(np.uint8), int(totals[i]))
+    with profiling.span("schedule.assemble"):
+        # keep only the words used by non-stored segments
+        used = [int(totals[i]) for i in range(b) if kinds[i] != "stored"]
+        cap = (max(used) + 31) // 32 + 1 if used else 0
+        words = words[:, :cap].astype("<u4")
+        for i in range(b):
+            if kinds[i] == "stored":
+                start = (seg_lo + i) * seg
+                _emit_stored(w, arr[start: start + int(n_valid[i])],
+                             final=bool(final_flags[i]))
+            else:
+                w.write_packed(words[i].view(np.uint8), int(totals[i]))
 
 
 def pack_segments(res, sym_lit, hdr_vals, hdr_bits, lit_codes, lit_bits,

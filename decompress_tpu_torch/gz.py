@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from . import de, native, streaming
+from .utils import profiling
 
 _FTEXT, _FHCRC, _FEXTRA, _FNAME, _FCOMMENT = 0x01, 0x02, 0x04, 0x08, 0x10
 
@@ -150,11 +151,13 @@ def compress(data, level: int = 6, *, mtime: int = 0, os: OS | int = OS.default(
     ``decompress_tpu.gz.compress`` with the same arguments; ``device``
     is where the DEFLATE pipeline runs (see :func:`de.deflate`)."""
     arr = de._np_u8(data)
-    head = _member_header(level, mtime, os, filename, comment, extra, fhcrc, text)
-    body = de.deflate(arr, level, segment_size=segment_size, device=device)
-    crc = native.crc32(arr)
-    isize = arr.size & 0xFFFFFFFF
-    return head + body + crc.to_bytes(4, "little") + isize.to_bytes(4, "little")
+    with profiling.span("call"):
+        head = _member_header(level, mtime, os, filename, comment, extra, fhcrc, text)
+        body = de.deflate(arr, level, segment_size=segment_size, device=device)
+        with profiling.span("schedule.assemble"):
+            crc = native.crc32(arr)
+            isize = arr.size & 0xFFFFFFFF
+            return head + body + crc.to_bytes(4, "little") + isize.to_bytes(4, "little")
 
 
 def _read_zero_terminated(buf: np.ndarray, pos: int) -> tuple[str, int]:

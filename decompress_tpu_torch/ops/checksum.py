@@ -33,7 +33,7 @@ import functools
 import numpy as np
 import torch
 
-from . import crc_cu
+from . import crc_cu, transfer
 
 ADLER_MOD = 65521
 ADLER_CHUNK = 512      # bytes per Adler-32 chunk
@@ -201,7 +201,7 @@ def crc32_rows_device(data_2d: torch.Tensor, lengths) -> torch.Tensor:
 
 def crc32_batch_device(data_2d: torch.Tensor, lengths) -> np.ndarray:
     """:func:`crc32_rows_device` and one copy to the host; uint32[M] numpy."""
-    return crc32_rows_device(data_2d, lengths).cpu().numpy().astype(np.uint32)
+    return transfer.read_now(crc32_rows_device(data_2d, lengths)).astype(np.uint32)
 
 
 def crc32_batch(data_2d: np.ndarray, lengths, *, device="cuda") -> np.ndarray:

@@ -30,7 +30,11 @@ one replay of a ``torch.cuda.CUDAGraph``:
   inputs, or run the graph on its buffers, under a replay still running.
 * **Launch counts.**  A replay runs no wrapper, so the capture's delta of
   ``_build.LAUNCHES`` is taken back out after the capture (a capture
-  executes nothing) and added again on every replay.
+  executes nothing) and added again on every replay; :data:`REPLAYS`
+  counts the replays themselves.
+* **Span.**  A call from outside every program (on the CPU too, where
+  it runs the function) is one ``programs.dispatch`` span
+  (``utils.profiling``): the key, the lookup and the replay.
 * **Cache.**  The captured programs of each device form an LRU of at
   most :data:`MAX_PROGRAMS` entries.
 
@@ -52,6 +56,7 @@ import time
 import torch
 
 from .. import _build
+from ..utils import profiling
 
 #: captured programs kept per device, the least recently used evicted
 #: first: every path of one process needs 25 (PERF.md), and a round-A
@@ -60,6 +65,8 @@ MAX_PROGRAMS = 32
 
 #: captures by program name
 CAPTURES: collections.Counter = collections.Counter()
+#: replays by program name
+REPLAYS: collections.Counter = collections.Counter()
 
 _cache: dict[int, collections.OrderedDict] = {}
 _lock = threading.RLock()
@@ -129,6 +136,7 @@ class Captured:
         for static, x in zip(self.inputs, leaves):
             static.copy_(x)
         self.graph.replay()
+        REPLAYS[self.name] += 1
         _build.LAUNCHES.update(self.launches)
         out = _unflatten(self.spec, iter([o.clone() for o in self.outputs]))
         self.done.record(stream)
@@ -170,9 +178,15 @@ class Program:
             return self.__wrapped__(*args, **kwargs)
 
     def __call__(self, *args, **kwargs):
+        if getattr(_local, "depth", 0):
+            return self.__wrapped__(*args, **kwargs)
+        with profiling.span("programs.dispatch"):
+            return self._dispatch(args, kwargs)
+
+    def _dispatch(self, args, kwargs):
         key, leaves, bound = self.key(*args, **kwargs)
         devices = {t.device for t in leaves}
-        if not any(d.type == "cuda" for d in devices) or getattr(_local, "depth", 0):
+        if not any(d.type == "cuda" for d in devices):
             return self.__wrapped__(*args, **kwargs)
         if len(devices) > 1:
             raise ValueError(f"{self.__qualname__}: tensors on {sorted(map(str, devices))}")

@@ -46,6 +46,8 @@ import torch
 
 from .. import _build
 from ..core import huffman, tables
+from ..utils import profiling
+from . import transfer
 from .inflate import END
 
 ROOT_BITS = 10
@@ -187,6 +189,7 @@ def tables_fit(lit_lens, dist_lens) -> bool:
     return True
 
 
+@profiling.spanned("schedule.stage")
 def stage(bodies, lit_lens, dist_lens, row_bits, device):
     """Card inputs of a decode: member bodies (uint8 arrays), their code
     lengths, and per member the (start, stop) bits of its rows, in order.
@@ -215,7 +218,7 @@ def stage(bodies, lit_lens, dist_lens, row_bits, device):
                        for j in range(0, c, ROW_WARPS)], np.int32).reshape(-1, 2)
 
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return transfer.put(a, device)
 
     *tabs, tab_ok = build_row_tables(put(np.asarray(lit_lens, np.int32)),
                                      put(np.asarray(dist_lens, np.int32)))

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..core import huffman, tables
+from ..utils import profiling
 
 from . import cost_cu, graphs, hist_cu, parse_cu, probe_cu, transfer
 from .probe_cu import _hash15, _run_lengths, _suffix_min, key_bits
@@ -425,6 +426,7 @@ def lz77_parse_cost(data, cand_length, cand_dist, n_valid, lit_cost,
                             seg_len, hist)
 
 
+@profiling.spanned("roundb.tables", cpu=True)
 def _hot_dists_host(dist_counts):
     """Top strided distances per segment from the round-A exact-distance
     histogram (host).  Distances <= 4 are covered by the always-on run
@@ -445,6 +447,7 @@ def _hot_dists_host(dist_counts):
     return hot
 
 
+@profiling.spanned("roundb.tables", cpu=True)
 def _cost_tables_host(hist_lit, hist_dist):
     """Round-A histograms -> float32 bit-cost tables (host).
 

@@ -20,27 +20,66 @@ the look-ahead would fall back to the serial schedule.  So on CUDA:
   the host will read; :func:`read` takes them from it, or queues a
   Fetch at once for a dict that has none.
 
+Paths that may block (the decode) copy with :func:`put` (a pageable
+upload) and :func:`read_now` (a blocking read).
+
 On the CPU nothing is pinned or copied: :func:`upload` is
 ``torch.from_numpy`` and a Fetch hands back the tensors' own arrays.
+
+Every upload is a ``transfer.upload`` span, every Fetch's queued copies
+a ``transfer.fetch`` span, and every wait of the host on the card a
+``transfer.wait`` span (``utils.profiling``); :data:`COUNTS` counts the
+bytes each way and the waits on a CUDA device.
 """
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
+
+from ..utils import profiling
+
+#: on CUDA devices: bytes uploaded (``uploaded``, from pinned and pageable
+#: host memory alike), bytes fetched to the host (``fetched``), and the
+#: host's waits on the card (``waits``)
+COUNTS: collections.Counter = collections.Counter()
 
 
 def upload(a: np.ndarray, device: torch.device, keep: list | None = None) -> torch.Tensor:
     """Host array ``a`` as a tensor on ``device``.  On CUDA the copy is
     staged in pinned memory and queued without blocking; the pinned
     source is appended to ``keep`` where one is given."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type != "cuda":
+    with profiling.span("transfer.upload"):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type != "cuda":
+            return t.to(device)
+        COUNTS["uploaded"] += t.nbytes
+        t = t.pin_memory()
+        if keep is not None:
+            keep.append(t)
+        return t.to(device, non_blocking=True)
+
+
+def put(a: np.ndarray, device) -> torch.Tensor:
+    """Host array ``a`` as a tensor on ``device``, copied from pageable
+    memory: on CUDA the copy blocks the host until the stream has run it."""
+    with profiling.span("transfer.upload"):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if torch.device(device).type == "cuda":
+            COUNTS["uploaded"] += t.nbytes
         return t.to(device)
-    t = t.pin_memory()
-    if keep is not None:
-        keep.append(t)
-    return t.to(device, non_blocking=True)
+
+
+def read_now(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host at once: a blocking read, which waits for
+    everything queued on the stream before it."""
+    with profiling.span("transfer.wait"):
+        if t.is_cuda:
+            COUNTS["fetched"] += t.nbytes
+            COUNTS["waits"] += 1
+        return t.cpu().numpy()
 
 
 class Fetch:
@@ -58,12 +97,14 @@ class Fetch:
         if dev.type != "cuda":
             self._host = self.sources
             return
-        self._host = {}
-        for k, t in self.sources.items():
-            self._host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host[k].copy_(t, non_blocking=True)
-        self._event = torch.cuda.Event()
-        self._event.record(torch.cuda.current_stream(dev))
+        with profiling.span("transfer.fetch"):
+            self._host = {}
+            for k, t in self.sources.items():
+                self._host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                self._host[k].copy_(t, non_blocking=True)
+                COUNTS["fetched"] += t.nbytes
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(dev))
 
     def holds(self, tensors: dict[str, torch.Tensor]) -> bool:
         """Whether this Fetch copies exactly these tensors under these names."""
@@ -71,9 +112,11 @@ class Fetch:
 
     def wait(self, *keys: str) -> list[np.ndarray]:
         """The named tensors on the host, once their copies have run."""
-        if self._event is not None:
-            self._event.synchronize()
-        return [self._host[k].numpy() for k in keys]
+        with profiling.span("transfer.wait"):
+            if self._event is not None:
+                COUNTS["waits"] += 1
+                self._event.synchronize()
+            return [self._host[k].numpy() for k in keys]
 
 
 class Queued(dict):

@@ -26,6 +26,7 @@ import torch.distributed as dist
 
 from .. import de
 from ..gz import _FEXTRA
+from ..utils import profiling
 from . import sharded
 
 #: environment variables a launcher (torchrun) sets for ``env://``
@@ -73,6 +74,7 @@ def _local_member_range(total_members: int) -> tuple[int, int]:
     return lo, hi
 
 
+@profiling.spanned("processes.gather")
 def _all_gather(x: np.ndarray) -> np.ndarray:
     """``x`` from every process, stacked by process index: [P, *x.shape]."""
     t = torch.from_numpy(np.ascontiguousarray(x))
@@ -95,22 +97,28 @@ def sharded_gzip_compress_multihost(data, level: int = 6, *,
     single-process archive."""
     sharded._mesh_devices(mesh, device)  # raises without the device
     arr = de._np_u8(data)
-    nproc, _ = _world()
-    if arr.size == 0 or nproc == 1:
-        return sharded.sharded_gzip_compress(arr, level, member_size=member_size,
-                                             mesh=mesh, device=device)
+    with profiling.span("call"):
+        nproc, _ = _world()
+        if arr.size == 0 or nproc == 1:
+            return sharded.sharded_gzip_compress(arr, level, member_size=member_size,
+                                                 mesh=mesh, device=device)
+        total = max(1, (arr.size + member_size - 1) // member_size)
+        lo, hi = _local_member_range(total)
+        local = arr[lo * member_size : hi * member_size]
+        if local.size:
+            meta = sharded.sharded_gzip_compress(
+                local, level, member_size=member_size, mesh=mesh, index=False,
+                return_meta=True, device=device)
+        else:
+            meta = b"", [], [], []
+        return _exchange(total, nproc, *meta)
 
-    total = max(1, (arr.size + member_size - 1) // member_size)
-    lo, hi = _local_member_range(total)
-    local = arr[lo * member_size : hi * member_size]
-    if local.size:
-        (local_arch, local_sizes, local_splits,
-         local_ncmds) = sharded.sharded_gzip_compress(
-            local, level, member_size=member_size, mesh=mesh, index=False,
-            return_meta=True, device=device)
-    else:
-        local_arch, local_sizes, local_splits, local_ncmds = b"", [], [], []
 
+@profiling.spanned("schedule.assemble")
+def _exchange(total: int, nproc: int, local_arch: bytes, local_sizes: list,
+              local_splits: list, local_ncmds: list) -> bytes:
+    """The whole archive from this process's piece of ``total`` members
+    and its per-member meta, exchanged with the other processes."""
     # order-preserving gather: sizes first, then the pieces padded to the
     # largest, by process index
     all_sizes = _all_gather(np.array([len(local_arch)], np.int64))

@@ -185,13 +185,15 @@ def _compress_members(arr, level, member_size, mesh, final_flags=None,
     # members are independent (window reset at boundaries), so they run
     # with no history prefix
     hist = 0
-    data, n_valid = _batched_members(arr, member_size, hist)
+    with profiling.span("schedule.stage"):
+        data, n_valid = _batched_members(arr, member_size, hist)
     m = data.shape[0]
     if final_flags is None:
         final_flags = np.ones(m, bool)
     chunk = de.MAX_DEVICE_BATCH * len(devs)
     out_words = (9 * member_size) // 32 + 2 * de._HDR_PAD
 
+    @profiling.spanned("schedule.stage")
     def start(k, glo, b, rows):
         dev = devs[k]
         cdata = np.zeros((rows, data.shape[1]), dtype=np.uint8)
@@ -202,9 +204,8 @@ def _compress_members(arr, level, member_size, mesh, final_flags=None,
         d_data = transfer.upload(cdata, dev, keep)
         d_nv = transfer.upload(cnv, dev, keep)
         d_hl = torch.zeros(rows, dtype=torch.int32, device=dev)
-        with profiling.annotate("lz77_analyze_dispatch"):
-            res0 = lz77.analyze2_start(d_data, d_nv, d_hl, level=level,
-                                       seg_len=member_size, hist=hist)
+        res0 = lz77.analyze2_start(d_data, d_nv, d_hl, level=level,
+                                   seg_len=member_size, hist=hist)
         return glo, b, rows, cdata, cnv, d_data, d_nv, d_hl, res0, keep
 
     def analyze(lo):  # round A of every device group of the chunk at lo
@@ -222,11 +223,10 @@ def _compress_members(arr, level, member_size, mesh, final_flags=None,
         (hdr_vals, hdr_bits), tabs, kinds = de.plan_blocks(
             hist_lit, hist_dist, cnv[:b], final_flags[glo:glo + b], pad_to=rows,
             shared_tree=shared or False)
-        with profiling.annotate("bitpack"):
-            (words, totals), (sp_bits, sp_cmds, sp_outs, sp_n) = de.pack_segments(
-                res, d_data[:, hist:], hdr_vals, hdr_bits, *tabs,
-                out_words=out_words, n_splits=N_SPLITS, split_stride=SPLIT_STRIDE,
-                split_bits=SPLIT_BITS)
+        (words, totals), (sp_bits, sp_cmds, sp_outs, sp_n) = de.pack_segments(
+            res, d_data[:, hist:], hdr_vals, hdr_bits, *tabs,
+            out_words=out_words, n_splits=N_SPLITS, split_stride=SPLIT_STRIDE,
+            split_bits=SPLIT_BITS)
         outs = {"totals": totals, "words": words, "sp_bits": sp_bits,
                 "sp_cmds": sp_cmds, "sp_outs": sp_outs, "sp_n": sp_n}
         if want_crc:
@@ -259,6 +259,7 @@ def _compress_members(arr, level, member_size, mesh, final_flags=None,
     return parts, n_valid, (np.array(crcs) if want_crc else None)
 
 
+@profiling.spanned("schedule.assemble")
 def _drain(packed: list, hist: int, parts: list, crcs: list | None) -> None:
     """Host half of one chunk's packs, in member order (device groups come
     in member order, so appending gathers by index): wait on each group's
@@ -336,14 +337,22 @@ def sharded_gzip_compress(data, level: int = 6, *, member_size: int = de.SEGMENT
         device = config.device if device == "cuda" else device
     devs = _mesh_devices(mesh, device)
     arr = de._np_u8(data)
-    if arr.size == 0:
-        empty = gz.compress(b"", level, device=devs[0])
-        return (empty, [len(empty)], [[(0, 0, 0)] * (N_SPLITS - 1)], [0]) \
-            if return_meta else empty
-    parts, n_valid, crcs = _compress_members(arr, level, member_size, devs,
-                                             shared_tree=shared_tree)
-    m = len(parts)
+    with profiling.span("call"):
+        if arr.size == 0:
+            empty = gz.compress(b"", level, device=devs[0])
+            return (empty, [len(empty)], [[(0, 0, 0)] * (N_SPLITS - 1)], [0]) \
+                if return_meta else empty
+        parts, n_valid, crcs = _compress_members(arr, level, member_size, devs,
+                                                 shared_tree=shared_tree)
+        return _assemble(parts, n_valid, crcs, level, mtime, os, index, return_meta)
 
+
+@profiling.spanned("schedule.assemble")
+def _assemble(parts, n_valid, crcs, level, mtime, os, index, return_meta):
+    """The archive, or with ``return_meta`` the tuple
+    :func:`sharded_gzip_compress` returns, from the members' parts, sizes
+    and CRC-32s (:func:`_compress_members`)."""
+    m = len(parts)
     head = b"\x1f\x8b\x08\x00" + (mtime & 0xFFFFFFFF).to_bytes(4, "little") \
         + bytes([gz._xfl(level), int(os)])
     bodies = []
@@ -612,6 +621,7 @@ def _split_kind(metas, huff, splits, tb) -> str:
     return kind
 
 
+@profiling.spanned("decode.plan", cpu=True)
 def decode_plan(buf: np.ndarray) -> DecodePlan:
     """Host half of the decode: parse the index and every member's block
     header, and lay out the rows (:func:`_layout`).  Raises _Serial for
@@ -742,10 +752,11 @@ def sharded_gzip_decompress(archive, *, expand: str = "auto", device="cuda") -> 
     :class:`CardFault` where that route decodes the archive."""
     dev = de._resolve_device(device)
     buf = de._np_u8(archive)
-    try:
-        return _decode_on_device(buf, dev, expand)
-    except _Serial as e:
-        return _serial(buf, str(e))
+    with profiling.span("call"):
+        try:
+            return _decode_on_device(buf, dev, expand)
+        except _Serial as e:
+            return _serial(buf, str(e))
 
 
 def _decode_on_device(buf: np.ndarray, dev: torch.device, expand: str) -> bytes:
@@ -761,15 +772,16 @@ def _decode_on_device(buf: np.ndarray, dev: torch.device, expand: str) -> bytes:
         if fit:
             whole = _layout(plan.metas, fit, {i: [] for i in fit}, "whole")
             _decode_groups(whole, dev, expand, results)
-    for i, (p, _, crc, isize) in enumerate(plan.metas):
-        if p[0] == "stored":
-            if len(p[1]) == isize and checksum.crc32(p[1], device=dev) == crc:
-                results[i] = p[1]
-            else:
-                reasons.append("member length or CRC-32 mismatch")
-    if any(r is None for r in results):
-        _card_reject(buf, reasons[0])
-    return b"".join(results)
+    with profiling.span("schedule.assemble"):
+        for i, (p, _, crc, isize) in enumerate(plan.metas):
+            if p[0] == "stored":
+                if len(p[1]) == isize and checksum.crc32(p[1], device=dev) == crc:
+                    results[i] = p[1]
+                else:
+                    reasons.append("member length or CRC-32 mismatch")
+        if any(r is None for r in results):
+            _card_reject(buf, reasons[0])
+        return b"".join(results)
 
 
 def _decode_groups(plan: DecodePlan, dev: torch.device, expand: str, results: list) -> list:
@@ -799,13 +811,14 @@ def _decode_group(plan: DecodePlan, lo: int, hi: int, dev: torch.device,
                                         st["blocks"], plan.max_cmds(lo, hi))
     want = transfer.upload(np.array([c for r in plan.counts[lo:hi] for c in r], np.int32), dev)
     counts = torch.diff(st["row_ptr"].to(torch.int64))
-    good = ok & torch.repeat_interleave(st["tab_ok"], counts) & ((want < 0) | (ncmds == want))
-    rejected = not bool(good.all())
+    good = ok & torch.repeat_interleave(st["tab_ok"], counts, output_size=ok.shape[0]) \
+        & ((want < 0) | (ncmds == want))
+    rejected = not bool(transfer.read_now(good.all()))
     # each member's rows are consecutive: its command stream is the
     # concatenation of its rows' spans; a rejected row's are dropped
     spans = torch.where(good, inflate.slot_counts_bits(cmds >> 26, st["stop"]), 0)
     row_starts = torch.cat([spans.new_zeros(1), torch.cumsum(spans, 0)])
-    total = int(row_starts[-1])
+    total = int(transfer.read_now(row_starts[-1]))
     flat = inflate.compact_commands(cmds, spans, lz77._ceil_pow2(total))
     bounds = row_starts[st["row_ptr"].to(torch.int64)]
     isizes = [metas[i][3] for i in huff]
@@ -816,19 +829,20 @@ def _decode_group(plan: DecodePlan, lo: int, hi: int, dev: torch.device,
         outs = _expand_device(flat, bounds, isizes, crcs)
     if rejected:
         member = np.repeat(np.arange(len(huff)), [len(r) for r in plan.rows[lo:hi]])
-        for k in set(member[~good.cpu().numpy()].tolist()):
+        for k in set(member[~transfer.read_now(good)].tolist()):
             outs[k] = None
         return outs, "card decode rejected a row"
     return outs, None if all(o is not None for o in outs) else "member length or CRC-32 mismatch"
 
 
+@profiling.spanned("decode.expand", cpu=True)
 def _expand_native(flat: torch.Tensor, bounds: torch.Tensor, isizes: list,
                    crcs: list) -> list:
     """The host route: the compacted commands fetched once, each member's
     span ``flat[bounds[k]:bounds[k + 1]]`` expanded by the native library
     and checked by length and CRC-32; None for a member that fails."""
-    flat = flat.cpu().numpy().astype(np.uint32)
-    bounds = bounds.cpu().numpy()
+    flat = transfer.read_now(flat).astype(np.uint32)
+    bounds = transfer.read_now(bounds)
     out = []
     for k, (isize, crc) in enumerate(zip(isizes, crcs)):
         span = np.ascontiguousarray(flat[bounds[k]:bounds[k + 1]])
@@ -844,6 +858,7 @@ def _expand_native(flat: torch.Tensor, bounds: torch.Tensor, isizes: list,
     return out
 
 
+@profiling.spanned("decode.expand", cpu=True)
 def _expand_device(flat: torch.Tensor, bounds: torch.Tensor, isizes: list,
                    crcs: list) -> list:
     """The device route: the members' command streams regrouped into one
@@ -851,7 +866,7 @@ def _expand_device(flat: torch.Tensor, bounds: torch.Tensor, isizes: list,
     whose length or CRC-32 does not match."""
     dev = flat.device
     mstart, mtotal = bounds[:-1], torch.diff(bounds)
-    mc = lz77._ceil_pow2(int(mtotal.max()))
+    mc = lz77._ceil_pow2(int(transfer.read_now(mtotal.max())))
     j = torch.arange(mc, device=dev)[None, :]
     idx = torch.clamp(mstart[:, None] + j, max=flat.shape[0] - 1)
     mem = torch.where(j < mtotal[:, None], flat[idx], inflate.END)
@@ -861,8 +876,8 @@ def _expand_device(flat: torch.Tensor, bounds: torch.Tensor, isizes: list,
     payload, lengths = inflate.expand_commands(mem >> 26, mem & 0x3FF, (mem >> 10) & 0xFFFF,
                                                width)
     got = checksum.crc32_batch_device(payload, lengths)
-    lengths = lengths.cpu().numpy()
-    payload = payload.cpu().numpy()
+    lengths = transfer.read_now(lengths)
+    payload = transfer.read_now(payload)
     return [payload[k, :isize].tobytes() if int(lengths[k]) == isize and int(got[k]) == crc
             else None for k, (isize, crc) in enumerate(zip(isizes, crcs))]
 

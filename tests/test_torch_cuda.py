@@ -47,6 +47,10 @@ time; the LRU evicting and capturing again.  Round A's candidate search
 (fields, probe, extend) on the arguments round A gives it
 (``chip_smoke.ROUND_A_CASES``) and on short rows of 150, 4,097 and
 4,999 bytes (text, one repeated byte, random) with and without history.
+The port's tracing (``utils.profiling``): a kernel launched and
+synchronized inside a span lies inside it on the profiler's clock; the
+gzip and archive writers traced under the sync debug mode "error"; the
+spans and counters of the card's paths.
 """
 
 import collections
@@ -56,6 +60,7 @@ import gzip
 import hashlib
 import pathlib
 import threading
+import time
 import zlib
 
 import numpy as np
@@ -924,3 +929,65 @@ def test_lru_evicts_and_recaptures(dev, monkeypatch):
     assert torch.equal(_scaled(xs[0] + 2), _scaled.eager(xs[0] + 2))  # a replay
     assert graphs.CAPTURES["_scaled"] == captures + 1
     assert [e.key[-1][0][0] for e in graphs.captured(0)] == [(7,), (5,)]
+
+
+def test_span_holds_its_kernel_on_the_profiler_clock(dev):
+    """A kernel launched and synchronized inside a span has its device
+    interval in the profile inside the span's (``time.time_ns()``),
+    widened by 0.1 ms: spans and device events share one clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from decompress_tpu_torch.utils import profiling
+
+    x = torch.randint(0, 256, (8, 130560), dtype=torch.uint8, device=dev)
+    lengths = torch.full((8,), 130560, dtype=torch.int32, device=dev)
+    crc_cu.crc32_rows(x, lengths)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            profiling.tracing() as spans:
+        for _ in range(5):
+            with profiling.span("schedule.stage"):
+                crc_cu.crc32_rows(x, lengths)
+                torch.cuda.synchronize()
+            time.sleep(0.002)
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == cuda and "crc_rows_kernel" in e.name())
+    assert len(kernels) == len(spans) == 5
+    for (k0, k1), s in zip(kernels, sorted(spans, key=lambda s: s.start_ns)):
+        assert s.start_ns - 100_000 <= k0 <= k1 <= s.end_ns + 100_000, (k0, k1, s)
+
+
+def test_spans_and_counters_on_the_card(dev):
+    """Traced, the writers still never block the stream; each replay is
+    one ``programs.dispatch`` span and one count of ``graphs.REPLAYS``;
+    the transfers' spans fire and their counters move (uploads, fetches
+    and waits in the writers and in the decode)."""
+    from decompress_tpu_torch.utils import profiling
+
+    x = _corpus_8mib()[: 2 << 20]
+    want = gz.compress(x, device="cuda")
+    arch = sharded.sharded_gzip_compress(x, device="cuda")
+    torch.cuda.synchronize()
+    replays, counts = sum(graphs.REPLAYS.values()), collections.Counter(transfer.COUNTS)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profiling.tracing() as spans:
+            got = gz.compress(x, device="cuda")
+            got_a = sharded.sharded_gzip_compress(x, device="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got == want and got_a == arch
+    names = collections.Counter(s.name for s in spans)
+    assert names["programs.dispatch"] == sum(graphs.REPLAYS.values()) - replays > 0
+    assert {"transfer.upload", "transfer.fetch", "transfer.wait", "plan.blocks",
+            "roundb.tables", "schedule.stage", "schedule.assemble"} <= set(names)
+    moved = collections.Counter(transfer.COUNTS) - counts
+    assert moved["uploaded"] > 0 and moved["fetched"] > 0 and moved["waits"] > 0
+    counts = collections.Counter(transfer.COUNTS)
+    with profiling.tracing() as spans:
+        assert sharded.sharded_gzip_decompress(arch, device="cuda") == x
+    assert {"decode.plan", "decode.expand", "transfer.wait"} <= {s.name for s in spans}
+    moved = collections.Counter(transfer.COUNTS) - counts
+    assert moved["uploaded"] > 0 and moved["fetched"] > 0 and moved["waits"] > 0

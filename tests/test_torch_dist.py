@@ -22,10 +22,12 @@ versions of the kernels, ``device="cpu"`` meshes) against the reference
   bytes;
 * two gloo processes (a ``file://`` rendezvous) writing
   ``sharded_gzip_compress_multihost``: both archives equal the
-  single-process archive and the reference's; ``initialize`` stays
-  single-process without an address and raises on a bad one;
-* ``utils.profiling``: a trace of the sharded writer holds its stage
-  scopes.
+  single-process archive and the reference's, and each process's trace
+  holds its ``processes.gather`` spans inside its call;
+  ``initialize`` stays single-process without an address and raises on
+  a bad one;
+* ``utils.profiling``: a trace of the sharded writer holds its stages'
+  spans.
 """
 
 import dataclasses
@@ -297,14 +299,22 @@ import torch
 torch.set_num_threads(1)
 from decompress_tpu_torch.parallel import multihost
 
+from decompress_tpu_torch.utils import profiling
+
 init, rank, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 multihost.initialize(init, 2, rank)
 multihost.initialize(init, 2, rank)  # idempotent
 assert multihost._local_member_range(25) == ((0, 13), (13, 25))[rank]
 data = (b"two-process multihost determinism " * 4000)[:100000]
-arch = multihost.sharded_gzip_compress_multihost(data, 6, member_size=4096, device="cpu")
+with profiling.tracing() as spans:
+    arch = multihost.sharded_gzip_compress_multihost(data, 6, member_size=4096, device="cpu")
 with open(out, "wb") as f:
     f.write(arch)
+call = next(s for s in spans if s.name == "call" and s.parent == 0)
+gathers = [s for s in spans if s.name == "processes.gather"]
+assert all(call.start_ns <= s.start_ns <= s.end_ns <= call.end_ns for s in spans)
+assert len(gathers) == 3 and all(s.call == call.call for s in spans), spans
+assert {"plan.blocks", "schedule.assemble"} <= {s.name for s in spans}
 torch.distributed.destroy_process_group()
 """
 
@@ -351,17 +361,14 @@ def test_initialize_single_process_and_errors(monkeypatch, tmp_path):
 
 def test_profiling_trace_names_the_sharded_stages(tmp_path):
     """device_trace writes a Chrome trace holding the sharded writer's
-    ``lz77_analyze_dispatch`` and ``bitpack`` scopes and an annotate
-    scope; FetchTimer records a lap."""
-    timer = profiling.FetchTimer()
+    stage spans (the captured programs' dispatch, the chunks' staging and
+    the assembly) and an outer span, whose records it keeps."""
     with profiling.device_trace(tmp_path) as prof:
-        timer.start()
-        with profiling.annotate("outer stage"):
+        with profiling.span("outer stage"):
             arch = sharded.sharded_gzip_compress(PAYLOAD[:9000], member_size=MEMBER,
                                                  device="cpu")
-        assert timer.stop(torch.zeros(1)) >= 0
     trace = (tmp_path / "trace.json").read_text()
-    for name in ("lz77_analyze_dispatch", "bitpack", "outer stage"):
+    for name in ("programs.dispatch", "schedule.stage", "schedule.assemble", "outer stage"):
         assert f'"{name}"' in trace, name
-    assert prof is not None and len(timer.laps) == 1 and timer.median == timer.laps[0]
+    assert prof.spans[-1].name == "outer stage"
     assert gzip.decompress(arch) == PAYLOAD[:9000]

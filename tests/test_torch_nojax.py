@@ -83,7 +83,7 @@ assert lzo.uncompress(c) == x == lzo.uncompress_with_buffer(c)
 rows = torch.zeros((2, lz77.HIST + 1024), dtype=torch.uint8)
 rows[:, lz77.HIST:] = torch.frombuffer(bytearray(x[:2048]), dtype=torch.uint8).view(2, 1024)
 nv, zero, one = (torch.full((2,), v, dtype=torch.int32) for v in (1024, 0, 1))
-with profiling.annotate("fixed step"):
+with profiling.span("fixed step"):
     words, bits = pipeline.fixed_deflate_segments(rows, nv, zero, one, seg_len=1024)
 for i in range(2):
     assert zlib.decompress(bitpack.words_to_bytes(words[i], int(bits[i])), -15) == \
