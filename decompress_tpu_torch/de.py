@@ -31,6 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import native
 from .core import bitstream, huffman, tables
 from .core.tables import (
     DIST_BASE,
@@ -234,6 +235,13 @@ def compress_bound(n: int, segment_size: int | None = None) -> int:
     return n + 6 * (n // chunk + 1) + 16
 
 
+#: rows planned by :func:`plan_blocks`, by kind (``stored``, ``fixed``,
+#: ``dynamic``), and ``overflow``: rows whose literal or distance tree
+#: was redistributed to fit 15 bits.  Always on.
+PLAN_COUNTS: collections.Counter = collections.Counter()
+_KIND_NAMES = np.array(["stored", "fixed", "dynamic"])
+
+
 @profiling.spanned("plan.blocks", cpu=True)
 def plan_blocks(hist_lit, hist_dist, n_valid, final_flags, *, pad_to=None,
                 force_block=None, shared_tree=False):
@@ -246,9 +254,31 @@ def plan_blocks(hist_lit, hist_dist, n_valid, final_flags, *, pad_to=None,
     dist_len, header)`` tuple) and every dynamic block reuses them;
     per-block stored/fixed fallback still applies.
 
+    One native call plans the batch (``native/plan.cpp``); its output is
+    :func:`_plan_blocks_plain`'s byte for byte.
+
     Returns ((hdr_vals, hdr_bits), (lit_codes, lit_bits, dist_codes,
     dist_bits, eob_vals, eob_bits), kinds).
     """
+    b_pad = pad_to or hist_lit.shape[0]
+    # hdr_vals, hdr_bits, lit_codes, lit_bits, dist_codes, dist_bits,
+    # eob_vals, eob_bits, zeroed: stored and padding rows stay so
+    outs = tuple(np.zeros((b_pad, width), dtype=dt)
+                 for width in (_HDR_PAD, NUM_LIT_SYMS, NUM_DIST_SYMS, 1)
+                 for dt in (np.uint32, np.int32))
+    kinds, overflow = native.plan_blocks(hist_lit, hist_dist, n_valid, final_flags,
+                                         outs, force_block=force_block,
+                                         shared_tree=shared_tree)
+    n_stored, n_fixed, n_dynamic = np.bincount(kinds, minlength=3).tolist()
+    PLAN_COUNTS.update(stored=n_stored, fixed=n_fixed, dynamic=n_dynamic,
+                       overflow=overflow)
+    return outs[:2], outs[2:], _KIND_NAMES[kinds].tolist()
+
+
+def _plan_blocks_plain(hist_lit, hist_dist, n_valid, final_flags, *, pad_to=None,
+                       force_block=None, shared_tree=False):
+    """The plain model of :func:`plan_blocks`: the reference's planner, a
+    Python loop over the rows.  The tests hold the native planner to it."""
     b = hist_lit.shape[0]
     b_pad = pad_to or b
     shared = None
@@ -456,8 +486,6 @@ def _inflate_native_arr(buf: np.ndarray, window,
     """Native one-shot inflate returning a numpy uint8 view (no copy);
     framing layers checksum/concatenate the array and materialize
     bytes once at the API boundary."""
-    from . import native
-
     inf = native.InflateStream()
     if window_bits != 15:
         inf.set_window_bits(window_bits)

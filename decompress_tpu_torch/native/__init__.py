@@ -1,18 +1,22 @@
-"""The host runtime (libtpuz): scalar checksums, the LZO codec and the
-resumable streaming inflater.
+"""The host runtime: libtpuz (scalar checksums, the LZO codec and the
+resumable streaming inflater) and libplan (the block planner of one
+batch, :func:`plan_blocks`).
 
 ``tpuz.cpp`` is a byte-for-byte copy of the reference's
 ``decompress_tpu/native/tpuz.cpp`` (``tests/test_torch_native.py``
 holds the two equal); this module is the port of its ``ctypes``
-wrapper.  The library builds with ``g++`` at first use into
-``build/native/<hash of source and flags>/libtpuz.so`` beside the
+wrapper.  ``plan.cpp`` is the port's own: the native form of
+``de.plan_blocks``, held byte for byte to the Python planner
+(``de._plan_blocks_plain``) by ``tests/test_torch_plan.py``.  Each
+source builds with ``g++`` at first use into
+``build/native/<hash of source and flags>/lib<stem>.so`` beside the
 package.  The build is atomic across processes: one process compiles
 under an ``fcntl`` lock to a temporary name and renames it into place,
 so no process loads a half-written file.  A failed build raises with
 the compiler's output; there is no fallback.
 
-Run ``python -m decompress_tpu_torch.native`` to build and print the
-library's path.
+Run ``python -m decompress_tpu_torch.native`` to build both libraries
+and print their paths.
 """
 
 from __future__ import annotations
@@ -30,25 +34,71 @@ import numpy as np
 
 _DIR = pathlib.Path(__file__).resolve().parent
 SRC = _DIR / "tpuz.cpp"
+PLAN_SRC = _DIR / "plan.cpp"
 BUILD_DIR = _DIR.parent.parent / "build" / "native"
-LIB_NAME = "libtpuz.so"
 # portable code: the build directory may travel to another machine
 CXX_FLAGS = ("-O3", "-Wall", "-shared", "-fPIC")
 
 _LOCK = threading.Lock()
-_LIB: ctypes.CDLL | None = None
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_u64, _u32, _i64, _i32 = ctypes.c_uint64, ctypes.c_uint32, ctypes.c_int64, ctypes.c_int32
+_vp = ctypes.c_void_p
+#: the entry points of each source, by file name: (restype, argtypes)
+_SIGS = {
+    "tpuz.cpp": {
+        "tpuz_adler32": (_u32, [_u8p, _u64, _u32]),
+        "tpuz_crc32": (_u32, [_u8p, _u64, _u32]),
+        "tpuz_crc32_combine": (_u32, [_u32, _u32, _u64]),
+        "tpuz_adler32_combine": (_u32, [_u32, _u32, _u64]),
+        "tpuz_lzo1x_decompress": (ctypes.c_int, [_u8p, _u64, _u8p, _u64,
+                                                 ctypes.POINTER(_u64)]),
+        "tpuz_lzo1x_compress": (ctypes.c_int, [_u8p, _u64, _u8p, _u64,
+                                               ctypes.POINTER(_u64)]),
+        "tpuz_inflate_new": (_vp, []),
+        "tpuz_inflate_clone": (_vp, [_vp]),
+        "tpuz_inflate_free": (None, [_vp]),
+        "tpuz_inflate_reset": (None, [_vp]),
+        "tpuz_inflate_error": (ctypes.c_char_p, [_vp]),
+        "tpuz_inflate_total_out": (_u64, [_vp]),
+        "tpuz_inflate_set_cursor": (None, [_vp, _u64]),
+        "tpuz_inflate_cursor": (_u64, [_vp]),
+        "tpuz_inflate_reset_keep_window": (None, [_vp]),
+        "tpuz_inflate_set_window_bits": (None, [_vp, ctypes.c_int]),
+        "tpuz_inflate_set_dictionary": (ctypes.c_int, [_vp, _u8p, _u32]),
+        "tpuz_inflate_takeback": (ctypes.c_int, [_vp, _u8p, ctypes.c_int]),
+        "tpuz_expand_cmds": (ctypes.c_int, [ctypes.POINTER(_u32), _u64, _u8p, _u64,
+                                            ctypes.POINTER(_u64)]),
+        "tpuz_inflate_run": (ctypes.c_int, [_vp, _u8p, _u64, ctypes.POINTER(_u64),
+                                            _u8p, _u64, ctypes.POINTER(_u64)]),
+    },
+    "plan.cpp": {
+        "tpuz_plan_blocks": (ctypes.c_int, [_i64, _vp, _vp, _vp, _vp, _i32, _i32,
+                                            _vp, _vp, _vp, _vp, _i64, _i64,
+                                            *[_vp] * 10]),
+    },
+}
 
 
-def _source_hash() -> str:
+def lib_name(src: pathlib.Path) -> str:
+    """The library built from ``src``: ``lib<stem>.so``."""
+    return f"lib{src.stem}.so"
+
+
+def _source_hash(src: pathlib.Path) -> str:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
+    h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> pathlib.Path:
-    """Compile the library unless this exact build exists; its path."""
-    out_dir = BUILD_DIR / _source_hash()
-    lib_path = out_dir / LIB_NAME
+def build(src: pathlib.Path | None = None) -> pathlib.Path:
+    """Compile the library of ``src`` (default :data:`SRC`) unless this
+    exact build exists; its path."""
+    src = SRC if src is None else src
+    name = lib_name(src)
+    out_dir = BUILD_DIR / _source_hash(src)
+    lib_path = out_dir / name
     if lib_path.exists():
         return lib_path
     cxx = shutil.which("g++")
@@ -59,8 +109,8 @@ def build() -> pathlib.Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if lib_path.exists():  # another process built it while we waited
             return lib_path
-        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [cxx, *CXX_FLAGS, str(SRC), "-o", str(tmp)]
+        tmp = out_dir / f"{name}.{os.getpid()}.tmp"
+        cmd = [cxx, *CXX_FLAGS, str(src), "-o", str(tmp)]
         res = subprocess.run(cmd, capture_output=True, text=True, check=False)
         if res.returncode != 0:
             tmp.unlink(missing_ok=True)
@@ -70,50 +120,24 @@ def build() -> pathlib.Path:
     return lib_path
 
 
-def _load() -> ctypes.CDLL:
-    """The loaded library (built at first use)."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
+def _load(src: pathlib.Path | None = None) -> ctypes.CDLL:
+    """The loaded library of ``src`` (default :data:`SRC`), built at
+    first use."""
+    src = SRC if src is None else src
+    lib = _LIBS.get(src.name)
+    if lib is not None:
+        return lib
     with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        lib = ctypes.CDLL(str(build()))
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        u64, u32 = ctypes.c_uint64, ctypes.c_uint32
-        vp = ctypes.c_void_p
-        sigs = {
-            "tpuz_adler32": (u32, [u8p, u64, u32]),
-            "tpuz_crc32": (u32, [u8p, u64, u32]),
-            "tpuz_crc32_combine": (u32, [u32, u32, u64]),
-            "tpuz_adler32_combine": (u32, [u32, u32, u64]),
-            "tpuz_lzo1x_decompress": (ctypes.c_int, [u8p, u64, u8p, u64,
-                                                     ctypes.POINTER(u64)]),
-            "tpuz_lzo1x_compress": (ctypes.c_int, [u8p, u64, u8p, u64,
-                                                   ctypes.POINTER(u64)]),
-            "tpuz_inflate_new": (vp, []),
-            "tpuz_inflate_clone": (vp, [vp]),
-            "tpuz_inflate_free": (None, [vp]),
-            "tpuz_inflate_reset": (None, [vp]),
-            "tpuz_inflate_error": (ctypes.c_char_p, [vp]),
-            "tpuz_inflate_total_out": (u64, [vp]),
-            "tpuz_inflate_set_cursor": (None, [vp, u64]),
-            "tpuz_inflate_cursor": (u64, [vp]),
-            "tpuz_inflate_reset_keep_window": (None, [vp]),
-            "tpuz_inflate_set_window_bits": (None, [vp, ctypes.c_int]),
-            "tpuz_inflate_set_dictionary": (ctypes.c_int, [vp, u8p, u32]),
-            "tpuz_inflate_takeback": (ctypes.c_int, [vp, u8p, ctypes.c_int]),
-            "tpuz_expand_cmds": (ctypes.c_int, [ctypes.POINTER(u32), u64, u8p, u64,
-                                                ctypes.POINTER(u64)]),
-            "tpuz_inflate_run": (ctypes.c_int, [vp, u8p, u64, ctypes.POINTER(u64),
-                                                u8p, u64, ctypes.POINTER(u64)]),
-        }
-        for name, (restype, argtypes) in sigs.items():
+        lib = _LIBS.get(src.name)
+        if lib is not None:
+            return lib
+        lib = ctypes.CDLL(str(build(src)))
+        for name, (restype, argtypes) in _SIGS[src.name].items():
             fn = getattr(lib, name)
             fn.restype = restype
             fn.argtypes = argtypes
-        _LIB = lib
-        return _LIB
+        _LIBS[src.name] = lib
+        return lib
 
 
 def _u8(data) -> ctypes.Array:
@@ -225,6 +249,64 @@ def expand_cmds(cmds_u32: np.ndarray, out: np.ndarray) -> int:
     if rc != 0:
         raise ValueError(f"expand_cmds failed: {rc}")
     return n.value
+
+
+#: ``force_block`` of the planner -> its code in ``plan.cpp``; any other
+#: value forces dynamic trees (stored blocks still win where cheaper)
+_FORCE = {None: 0, "fixed": 1}
+
+
+def _addr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def plan_blocks(hist_lit, hist_dist, n_valid, final_flags, outs, *,
+                force_block=None, shared_tree=False) -> tuple[np.ndarray, int]:
+    """Plan the ``len(hist_lit)`` rows of a batch in one native call.
+
+    ``outs`` are the planner's zeroed output arrays, written in place:
+    (hdr_vals, hdr_bits, lit_codes, lit_bits, dist_codes, dist_bits,
+    eob_vals, eob_bits), each C-contiguous with at least as many rows.
+    ``shared_tree`` is False, True (one tree of the rows' summed counts)
+    or a ``(lit_len, dist_len, header)`` tuple.  Returns the kind of each
+    row (int8: 0 stored, 1 fixed, 2 dynamic) and the number of rows whose
+    literal or distance tree was redistributed to fit 15 bits."""
+    hl = np.ascontiguousarray(hist_lit, dtype=np.int64)
+    hd = np.ascontiguousarray(hist_dist, dtype=np.int64)
+    b = hl.shape[0]
+    if hl.shape[1:] != (286,) or hd.shape != (b, 30):
+        raise ValueError(f"histograms: expected [b, 286] and [b, 30], got "
+                         f"{hl.shape} and {hd.shape}")
+    nv = np.ascontiguousarray(np.asarray(n_valid)[:b], dtype=np.int64)
+    fin = np.ascontiguousarray(np.asarray(final_flags)[:b] != 0, dtype=np.uint8)
+    widths = (1024, 1024, 286, 286, 30, 30, 1, 1)
+    dtypes = (np.uint32, np.int32) * 4
+    for a, w, dt in zip(outs, widths, dtypes):
+        _check_buffer("outs", a, dt)
+        if a.ndim != 2 or a.shape[1] != w or a.shape[0] < b:
+            raise ValueError(f"outs: expected [>= {b}, {w}], got {a.shape}")
+    shared, tree, hdr_n, hdr_len = 0, (None,) * 4, 0, 0
+    if isinstance(shared_tree, tuple):
+        lit_len, dist_len, header = shared_tree
+        keep = (np.ascontiguousarray(lit_len, dtype=np.int32),
+                np.ascontiguousarray(dist_len, dtype=np.int32),
+                np.ascontiguousarray(header.values, dtype=np.uint32),
+                np.ascontiguousarray(header.nbits, dtype=np.int32))
+        if keep[0].shape != (286,) or keep[1].shape != (30,):
+            raise ValueError("shared_tree: expected 286 literal and 30 distance lengths")
+        shared, tree = 2, tuple(map(_addr, keep))
+        hdr_n, hdr_len = keep[2].size, int(header.bit_length)
+    elif shared_tree:
+        shared = 1
+    kinds = np.zeros(b, np.int8)
+    overflow = ctypes.c_int64(0)
+    rc = _load(PLAN_SRC).tpuz_plan_blocks(
+        b, _addr(hl), _addr(hd), _addr(nv), _addr(fin), _FORCE.get(force_block, 2),
+        shared, *tree, hdr_n, hdr_len, *map(_addr, outs), _addr(kinds),
+        ctypes.addressof(overflow))
+    if rc != 0:
+        raise ValueError("shared_tree: the header does not fit a row's 1024 slots")
+    return kinds, overflow.value
 
 
 class InflateStream:

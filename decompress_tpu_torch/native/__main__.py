@@ -1,3 +1,4 @@
-from . import build
+from . import PLAN_SRC, build
 
 print(build())
+print(build(PLAN_SRC))

@@ -1,8 +1,9 @@
 """The port's copy of the native host runtime (``decompress_tpu_torch/native``).
 
-``tpuz.cpp`` must stay the reference's byte for byte.  The library builds
-atomically: six processes started together, all building into one fresh
-directory, each load a whole library; five processes started while a
+``tpuz.cpp`` must stay the reference's byte for byte.  Each library
+(libtpuz, and libplan of the port's own ``plan.cpp``) builds atomically:
+six processes started together, all building into one fresh directory,
+each load a whole library and call it; five processes started while a
 slowed compiler has written half of its output wait for the whole
 library (no process loads a half-written file); and a source that does
 not compile raises with the compiler's message.  Each entry point is held to an independent oracle: the
@@ -47,15 +48,25 @@ def test_source_is_the_reference_copy():
 
 _BUILD_AND_LOAD = """
 import pathlib, sys, zlib
+import numpy as np
 from decompress_tpu_torch import native
 native.BUILD_DIR = pathlib.Path(sys.argv[1])
-assert native.adler32(b"abc" * 1000) == zlib.adler32(b"abc" * 1000)
-print(native.build())
+src = native.SRC.parent / sys.argv[2]
+if src == native.SRC:
+    assert native.adler32(b"abc" * 1000) == zlib.adler32(b"abc" * 1000)
+else:  # an empty final block: fixed (10 bits) beats stored (40)
+    outs = [np.zeros((1, w), dt) for w, dt in zip((1024, 1024, 286, 286, 30, 30, 1, 1),
+                                                   (np.uint32, np.int32) * 4)]
+    kinds, _ = native.plan_blocks(np.zeros((1, 286), np.int32), np.zeros((1, 30), np.int32),
+                                  [0], [1], outs)
+    assert kinds.tolist() == [1] and outs[1][0, :3].tolist() == [1, 2, 0]
+print(native.build(src))
 """
 
 
-def test_concurrent_builds_all_load(tmp_path):
-    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_AND_LOAD, str(tmp_path)],
+@pytest.mark.parametrize("source", ["tpuz.cpp", "plan.cpp"])
+def test_concurrent_builds_all_load(tmp_path, source):
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_AND_LOAD, str(tmp_path), source],
                               cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for _ in range(6)]
     results = [p.communicate(timeout=300) + (p.returncode,) for p in procs]
@@ -63,8 +74,9 @@ def test_concurrent_builds_all_load(tmp_path):
     paths = {out.strip() for out, _, _ in results}
     assert len(paths) == 1
     lib = pathlib.Path(paths.pop())
-    assert lib.parent.parent == tmp_path and lib.name == native.LIB_NAME
-    assert sorted(p.name for p in lib.parent.iterdir()) == [".lock", native.LIB_NAME]
+    name = native.lib_name(native.SRC.parent / source)
+    assert lib.parent.parent == tmp_path and lib.name == name
+    assert sorted(p.name for p in lib.parent.iterdir()) == [".lock", name]
 
 
 _SLOW_GXX = """#!{python}
@@ -101,13 +113,14 @@ def test_half_written_build_is_never_loaded(tmp_path):
     build = tmp_path / "build"
 
     def start():
-        return subprocess.Popen([sys.executable, "-c", _BUILD_AND_LOAD, str(build)],
+        return subprocess.Popen([sys.executable, "-c", _BUILD_AND_LOAD, str(build),
+                                 "tpuz.cpp"],
                                 cwd=ROOT, env=env, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
 
     first = start()
     deadline = time.monotonic() + 120
-    while not any(p.name.startswith(native.LIB_NAME) for p in build.rglob("*")):
+    while not any(p.name.startswith(native.lib_name(native.SRC)) for p in build.rglob("*")):
         assert time.monotonic() < deadline and first.poll() is None, first.communicate()
         time.sleep(0.02)
     procs = [first] + [start() for _ in range(5)]
