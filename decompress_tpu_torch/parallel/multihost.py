@@ -11,6 +11,15 @@
   the same FEXTRA index the single-process writer builds: every process
   gets the single-process archive, byte for byte.
 
+The exchange is traced by its parts (``utils.profiling``): the sizes'
+all-gather, the first collective of a call, is ``processes.wait`` (it
+moves 8 bytes, so its time is this process's wait for the slowest); the
+pieces' and the metadata's all-gathers are ``processes.gather``; the
+index rebuilt from every process's metadata is ``processes.index``.
+:data:`COUNTS` counts the collectives and the bytes each way.  The steps
+are module functions called through their module names, so that a
+wrapper set on the module sees every call.
+
 The pieces are host bytes, so the collectives are gloo all-gathers of CPU
 tensors (NCCL would also refuse two ranks on one card).  One process
 degenerates to the single-process archive.
@@ -18,6 +27,7 @@ degenerates to the single-process archive.
 
 from __future__ import annotations
 
+import collections
 import os
 
 import numpy as np
@@ -31,6 +41,11 @@ from . import sharded
 
 #: environment variables a launcher (torchrun) sets for ``env://``
 _LAUNCHER_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+
+#: the exchange's all-gathers (``collectives``), the bytes this process
+#: sent in them (``sent``) and the bytes it received from the others
+#: (``received``), the pieces' padding included
+COUNTS: collections.Counter = collections.Counter()
 
 
 def initialize(coordinator_address: str | None = None,
@@ -74,13 +89,22 @@ def _local_member_range(total_members: int) -> tuple[int, int]:
     return lo, hi
 
 
-@profiling.spanned("processes.gather")
-def _all_gather(x: np.ndarray) -> np.ndarray:
-    """``x`` from every process, stacked by process index: [P, *x.shape]."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, t)
-    return torch.stack(out).numpy()
+def _all_gather(x: np.ndarray, span: str = "processes.gather") -> np.ndarray:
+    """``x`` from every process, stacked by process index: [P, *x.shape],
+    inside span ``span``."""
+    with profiling.span(span):
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(out, t)
+        COUNTS.update(collectives=1, sent=t.nbytes, received=t.nbytes * (len(out) - 1))
+        return torch.stack(out).numpy()
+
+
+def _gather_sizes(n: int) -> np.ndarray:
+    """Every process's piece size ``n``, by process index: [P].  The
+    first collective of a call, so its time is this process's wait for
+    the slowest."""
+    return _all_gather(np.array([n], np.int64), "processes.wait")[:, 0]
 
 
 def sharded_gzip_compress_multihost(data, level: int = 6, *,
@@ -121,12 +145,12 @@ def _exchange(total: int, nproc: int, local_arch: bytes, local_sizes: list,
     and its per-member meta, exchanged with the other processes."""
     # order-preserving gather: sizes first, then the pieces padded to the
     # largest, by process index
-    all_sizes = _all_gather(np.array([len(local_arch)], np.int64))
+    all_sizes = _gather_sizes(len(local_arch))
     cap = int(all_sizes.max())
     buf = np.zeros(cap, np.uint8)
     buf[: len(local_arch)] = np.frombuffer(local_arch, np.uint8)
     gathered = _all_gather(buf)
-    archive = b"".join(gathered[p, : int(all_sizes[p, 0])].tobytes()
+    archive = b"".join(gathered[p, : int(all_sizes[p])].tobytes()
                        for p in range(nproc))  # by process == by member range
 
     # per-member metadata, to rebuild the single-process FEXTRA index
@@ -137,7 +161,15 @@ def _exchange(total: int, nproc: int, local_arch: bytes, local_sizes: list,
         meta[j, 0] = s
         meta[j, 1] = local_ncmds[j]
         meta[j, 2:] = [v for tri in local_splits[j] for v in tri]
-    all_meta = _all_gather(meta)  # [P, per, width]
+    return _assemble_index(archive, total, _all_gather(meta))  # [P, per, width]
+
+
+@profiling.spanned("processes.index")
+def _assemble_index(archive: bytes, total: int, all_meta: np.ndarray) -> bytes:
+    """``archive`` with the FEXTRA index of its ``total`` members, rebuilt
+    from every process's metadata rows (``all_meta``: [P, per, width], by
+    process index, each process's members in its first rows)."""
+    nproc, per = all_meta.shape[:2]
     sizes, split_rows, ncmds = [], [], []
     for p in range(nproc):
         plo = min(p * per, total)

@@ -31,7 +31,9 @@ thread.  The names, one layer each (PERF.md §3)::
     programs.dispatch   a captured program's key, lookup and replay
     roundb.tables       round B's host cost tables and hot strides
     plan.blocks         host block planning
-    processes.gather    the processes' all-gathers
+    processes.wait      the sizes' all-gather: the wait for the slowest process
+    processes.gather    the processes' all-gathers of pieces and metadata
+    processes.index     the archive's index rebuilt from every process's metadata
     decode.plan         the decode's host plan
     decode.expand       the decode's expansion of commands into bytes
 

@@ -23,15 +23,23 @@ versions of the kernels, ``device="cpu"`` meshes) against the reference
 * two gloo processes (a ``file://`` rendezvous) writing
   ``sharded_gzip_compress_multihost``: both archives equal the
   single-process archive and the reference's, and each process's trace
-  holds its ``processes.gather`` spans inside its call;
-  ``initialize`` stays single-process without an address and raises on
-  a bad one;
+  holds its ``processes.wait`` and ``processes.gather`` spans inside its
+  call; ``initialize`` stays single-process without an address and
+  raises on a bad one;
+* four gloo processes, one of them owning no member or the last a short
+  block: every archive equals the single-process archive and the
+  reference's and decodes to the input; each call records one
+  ``processes.wait``, two ``processes.gather`` and one
+  ``processes.index``, none inside another, and ``multihost.COUNTS``
+  moves by three collectives and the bytes of the padded pieces and the
+  metadata rows;
 * ``utils.profiling``: a trace of the sharded writer holds its stages'
   spans.
 """
 
 import dataclasses
 import gzip
+import json
 import os
 import pathlib
 import subprocess
@@ -311,23 +319,29 @@ with profiling.tracing() as spans:
 with open(out, "wb") as f:
     f.write(arch)
 call = next(s for s in spans if s.name == "call" and s.parent == 0)
-gathers = [s for s in spans if s.name == "processes.gather"]
+names = [s.name for s in spans]
 assert all(call.start_ns <= s.start_ns <= s.end_ns <= call.end_ns for s in spans)
-assert len(gathers) == 3 and all(s.call == call.call for s in spans), spans
-assert {"plan.blocks", "schedule.assemble"} <= {s.name for s in spans}
+assert names.count("processes.wait") == 1 and names.count("processes.gather") == 2, names
+assert all(s.call == call.call for s in spans), spans
+assert {"plan.blocks", "schedule.assemble"} <= set(names)
 torch.distributed.destroy_process_group()
 """
 
 
-def test_two_process_multihost_archive(tmp_path):
+def _run_workers(script: str, n: int, tmp_path, *args) -> list:
+    """``script`` in ``n`` processes meeting at a ``file://`` rendezvous,
+    each given the rendezvous, its rank, its output path and ``args``;
+    returns the output paths, by rank, once every process has ended
+    with 0."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     init = (tmp_path / "rendezvous").as_uri()
-    outs = [tmp_path / "arch0.bin", tmp_path / "arch1.bin"]
-    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, init, str(i), str(outs[i])],
+    outs = [tmp_path / f"out{i}.bin" for i in range(n)]
+    procs = [subprocess.Popen([sys.executable, "-c", script, init, str(i), str(outs[i]),
+                               *map(str, args)],
                               env=env, cwd=ROOT, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE)
-             for i in range(2)]
+             for i in range(n)]
     logs = []
     try:
         for p in procs:
@@ -336,13 +350,84 @@ def test_two_process_multihost_archive(tmp_path):
     finally:
         for p in procs:
             p.kill()
-    assert [p.returncode for p in procs] == [0, 0], logs
-    arch0, arch1 = (o.read_bytes() for o in outs)
+    assert [p.returncode for p in procs] == [0] * n, logs
+    return outs
+
+
+def test_two_process_multihost_archive(tmp_path):
+    arch0, arch1 = (o.read_bytes() for o in _run_workers(_WORKER, 2, tmp_path))
     data = (b"two-process multihost determinism " * 4000)[:100000]
     assert arch0 == arch1
     assert arch0 == sharded.sharded_gzip_compress(data, 6, member_size=4096, device="cpu")
     assert arch0 == ref.sharded_gzip_compress(data, 6, member_size=4096)
     assert sharded.sharded_gzip_decompress(arch0, device="cpu") == data
+
+
+_WORKER4 = r"""
+import json
+import sys
+import torch
+torch.set_num_threads(1)
+from decompress_tpu_torch.parallel import multihost
+from decompress_tpu_torch.utils import profiling
+
+init, rank, out, n = sys.argv[1], int(sys.argv[2]), sys.argv[3], int(sys.argv[4])
+multihost.initialize(init, 4, rank)
+data = (b"four-process exchange, member order kept; " * 3000)[:n]
+calls = []
+for _ in range(2):
+    before = dict(multihost.COUNTS)
+    with profiling.tracing() as spans:
+        arch = multihost.sharded_gzip_compress_multihost(data, 6, member_size=4096,
+                                                         device="cpu")
+    call = next(s for s in spans if s.name == "call" and s.parent == 0)
+    ours = [s for s in spans if s.name.startswith("processes.")]
+    assert sorted(s.name for s in ours) == ["processes.gather", "processes.gather",
+                                            "processes.index", "processes.wait"], spans
+    assert all(call.start_ns <= s.start_ns <= s.end_ns <= call.end_ns
+               and s.call == call.call for s in spans), spans
+    by_id = {s.id: s for s in spans}
+    for s in ours:  # no processes.* span inside another
+        p = by_id.get(s.parent)
+        while p is not None:
+            assert not p.name.startswith("processes."), (s, p)
+            p = by_id.get(p.parent)
+    calls.append({k: multihost.COUNTS[k] - before.get(k, 0)
+                  for k in ("collectives", "sent", "received")})
+with open(out, "wb") as f:
+    f.write(arch)
+with open(out + ".json", "w") as f:
+    json.dump(calls, f)
+torch.distributed.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("n", [3 * 4096 - 700, 7 * 4096 - 1500],
+                         ids=["a_process_owns_none", "short_last_rank"])
+def test_four_process_exchange(tmp_path, n):
+    """3 members over 4 processes (the last owns none), or 7 (the last
+    owns one short member): the archive every process holds is the
+    single process's and the reference's, each call's exchange is one
+    wait, two gathers and one index rebuild, and ``COUNTS`` moves by
+    the padded pieces and the metadata rows."""
+    outs = _run_workers(_WORKER4, 4, tmp_path, n)
+    data = (b"four-process exchange, member order kept; " * 3000)[:n]
+    archs = [o.read_bytes() for o in outs]
+    want = sharded.sharded_gzip_compress(data, 6, member_size=4096, device="cpu")
+    assert archs == [want] * 4
+    assert want == ref.sharded_gzip_compress(data, 6, member_size=4096)
+    assert sharded.sharded_gzip_decompress(want, device="cpu") == data
+    total = -(-n // 4096)
+    per = -(-total // 4)
+    pieces = [sharded.sharded_gzip_compress(data[lo:lo + per * 4096], 6, member_size=4096,
+                                            index=False, device="cpu")
+              if lo < n else b"" for lo in range(0, 4 * per * 4096, per * 4096)]
+    assert b"".join(pieces) == sharded.sharded_gzip_compress(data, 6, member_size=4096,
+                                                             index=False, device="cpu")
+    sent = 8 + max(map(len, pieces)) + 8 * per * (2 + 3 * (sharded.N_SPLITS - 1))
+    for o in outs:
+        counts = json.loads(pathlib.Path(str(o) + ".json").read_text())
+        assert counts == [{"collectives": 3, "sent": sent, "received": 3 * sent}] * 2
 
 
 def test_initialize_single_process_and_errors(monkeypatch, tmp_path):
