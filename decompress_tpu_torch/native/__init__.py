@@ -1,13 +1,16 @@
 """The host runtime: libtpuz (scalar checksums, the LZO codec and the
-resumable streaming inflater) and libplan (the block planner of one
-batch, :func:`plan_blocks`).
+resumable streaming inflater) and libplan (the Huffman trees of one
+batch: the block planner, :func:`plan_blocks`, and round B's bit-cost
+tables, :func:`cost_tables`).
 
 ``tpuz.cpp`` is a byte-for-byte copy of the reference's
 ``decompress_tpu/native/tpuz.cpp`` (``tests/test_torch_native.py``
 holds the two equal); this module is the port of its ``ctypes``
 wrapper.  ``plan.cpp`` is the port's own: the native form of
 ``de.plan_blocks``, held byte for byte to the Python planner
-(``de._plan_blocks_plain``) by ``tests/test_torch_plan.py``.  Each
+(``de._plan_blocks_plain``) by ``tests/test_torch_plan.py``, and of
+``lz77._cost_tables_host``, held to its Python body
+(``lz77._cost_tables_plain``) by ``tests/test_torch_cost.py``.  Each
 source builds with ``g++`` at first use into
 ``build/native/<hash of source and flags>/lib<stem>.so`` beside the
 package.  The build is atomic across processes: one process compiles
@@ -77,6 +80,7 @@ _SIGS = {
         "tpuz_plan_blocks": (ctypes.c_int, [_i64, _vp, _vp, _vp, _vp, _i32, _i32,
                                             _vp, _vp, _vp, _vp, _i64, _i64,
                                             *[_vp] * 10]),
+        "tpuz_cost_tables": (None, [_i64, _vp, _vp, _vp, _vp, _vp]),
     },
 }
 
@@ -307,6 +311,26 @@ def plan_blocks(hist_lit, hist_dist, n_valid, final_flags, outs, *,
     if rc != 0:
         raise ValueError("shared_tree: the header does not fit a row's 1024 slots")
     return kinds, overflow.value
+
+
+def cost_tables(hist_lit, hist_dist) -> tuple[np.ndarray, np.ndarray, int]:
+    """Round B's bit-cost tables of the ``len(hist_lit)`` rows of a batch
+    in one native call: float32 ``lit_cost`` [b, 286] and ``dist_cost``
+    [b, 30] (each symbol's 15-bit-limited code length, one EOB counted,
+    13 where the row never used the symbol), and the number of rows whose
+    literal or distance tree was redistributed to fit 15 bits."""
+    hl = np.ascontiguousarray(hist_lit, dtype=np.int64)
+    hd = np.ascontiguousarray(hist_dist, dtype=np.int64)
+    b = hl.shape[0]
+    if hl.shape[1:] != (286,) or hd.shape != (b, 30):
+        raise ValueError(f"histograms: expected [b, 286] and [b, 30], got "
+                         f"{hl.shape} and {hd.shape}")
+    lit_cost = np.empty((b, 286), np.float32)
+    dist_cost = np.empty((b, 30), np.float32)
+    overflow = ctypes.c_int64(0)
+    _load(PLAN_SRC).tpuz_cost_tables(b, _addr(hl), _addr(hd), _addr(lit_cost),
+                                     _addr(dist_cost), ctypes.addressof(overflow))
+    return lit_cost, dist_cost, overflow.value
 
 
 class InflateStream:

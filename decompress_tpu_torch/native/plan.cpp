@@ -1,4 +1,5 @@
-// plan: host block planning of one batch of DEFLATE blocks in one call.
+// plan: host block planning of one batch of DEFLATE blocks in one call,
+// and round B's bit-cost tables of one batch in another.
 //
 // The native form of ``de.plan_blocks`` (whose Python body stays as
 // ``de._plan_blocks_plain``): for each row of a batch it builds the
@@ -17,6 +18,10 @@
 //     gen_bitlen does, then lengths reassigned in (freq, symbol) order;
 //   * the code-length RLE of RFC 1951 3.2.7 and the precode built with a
 //     limit of 7 bits.
+//
+// The same ``code_lengths`` gives ``lz77._cost_tables_host`` its tables
+// (whose Python body stays as ``lz77._cost_tables_plain``): the two code
+// lengths of each row, 13 bits for every symbol the row never used.
 //
 // Build: g++ -O3 -shared -fPIC plan.cpp -o libplan.so
 
@@ -405,6 +410,32 @@ int tpuz_plan_blocks(int64_t b, const int64_t* hist_lit, const int64_t* hist_dis
   }
   *overflow_rows = overflowed;
   return 0;
+}
+
+// Round B's bit-cost tables of rows [0, b) (the native form of
+// ``lz77._cost_tables_host``).  Inputs: hist_lit int64[b, 286] (EOB not
+// counted), hist_dist int64[b, 30].  Outputs: lit_cost float32[b, 286]
+// and dist_cost float32[b, 30], each symbol's 15-bit-limited code length
+// with one EOB counted, or 13 where the length is 0; *overflow_rows the
+// rows whose literal or distance tree was redistributed to fit 15 bits.
+void tpuz_cost_tables(int64_t b, const int64_t* hist_lit, const int64_t* hist_dist,
+                      float* lit_cost, float* dist_cost, int64_t* overflow_rows) {
+  constexpr float kUnused = 13.0f;
+  int64_t overflowed = 0;
+  int64_t hl[kLitSyms];
+  int32_t ll[kLitSyms], dl[kDistSyms];
+  for (int64_t i = 0; i < b; i++) {
+    std::copy(hist_lit + i * kLitSyms, hist_lit + (i + 1) * kLitSyms, hl);
+    hl[kEob] += 1;
+    const int o1 = code_lengths(hl, kLitSyms, kMaxBits, ll);
+    const int o2 = code_lengths(hist_dist + i * kDistSyms, kDistSyms, kMaxBits, dl);
+    overflowed += o1 > 0 || o2 > 0;
+    float* lit_row = lit_cost + i * kLitSyms;
+    float* dist_row = dist_cost + i * kDistSyms;
+    for (int s = 0; s < kLitSyms; s++) lit_row[s] = ll[s] > 0 ? ll[s] : kUnused;
+    for (int s = 0; s < kDistSyms; s++) dist_row[s] = dl[s] > 0 ? dl[s] : kUnused;
+  }
+  *overflow_rows = overflowed;
 }
 
 }  // extern "C"

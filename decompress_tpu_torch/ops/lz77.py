@@ -25,9 +25,10 @@ reference's, array for array, batched over segments instead of vmapped:
 * greedy/lazy take-defer, the mark-path parse (``parse_cu``), the exact
   verification pass, the histograms (``hist_cu``), and the
   trim-and-reparse repair that makes the output byte-exact;
-* for the two-round levels (5-12), round B: host bit-cost tables and
-  hot-stride mining from round A's histograms, then the cost-aware
-  re-parse (literal bits and match gains in ``cost_cu``).
+* for the two-round levels (5-12), round B: host bit-cost tables (one
+  native call a batch) and hot-stride mining from round A's histograms,
+  then the cost-aware re-parse (literal bits and match gains in
+  ``cost_cu``).
 
 uint32 arithmetic (hashes) runs in int64 masked to 32 bits: torch has
 no wrapping uint32 multiply, and int32 shifts are arithmetic.
@@ -40,12 +41,14 @@ is one replay of a captured CUDA graph.  The host reads between them
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import native
 from ..core import huffman, tables
 from ..utils import profiling
 
@@ -447,6 +450,11 @@ def _hot_dists_host(dist_counts):
     return hot
 
 
+#: rows tabled by :func:`_cost_tables_host`, and ``overflow``: rows whose
+#: literal or distance tree was redistributed to fit 15 bits.  Always on.
+TABLE_COUNTS: collections.Counter = collections.Counter()
+
+
 @profiling.spanned("roundb.tables", cpu=True)
 def _cost_tables_host(hist_lit, hist_dist):
     """Round-A histograms -> float32 bit-cost tables (host).
@@ -454,7 +462,19 @@ def _cost_tables_host(hist_lit, hist_dist):
     Canonical code lengths from the round-A distribution; symbols the
     round-A parse never produced get a pessimistic-but-usable default
     so round B may still introduce them when clearly profitable.
+
+    One native call tables the batch (``native/plan.cpp``); its output
+    is :func:`_cost_tables_plain`'s exactly.
     """
+    lit_cost, dist_cost, overflow = native.cost_tables(hist_lit, hist_dist)
+    TABLE_COUNTS.update(rows=lit_cost.shape[0], overflow=overflow)
+    return lit_cost, dist_cost
+
+
+def _cost_tables_plain(hist_lit, hist_dist):
+    """The plain model of :func:`_cost_tables_host`: the reference's
+    tables, a Python loop of two trees a row.  The tests hold the native
+    tables to it."""
     b = hist_lit.shape[0]
     lit_cost = np.full((b, 286), 13.0, np.float32)
     dist_cost = np.full((b, 30), 13.0, np.float32)

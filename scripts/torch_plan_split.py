@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""The host block planner on the card machine's host: each batch's
-planning time, native (``de.plan_blocks``) against the plain Python
-planner (``de._plan_blocks_plain``), and the rows planned by kind.
+"""The compressors' two native host stages on the card machine's host:
+each batch's time, native against the plain Python model, and the
+stage's counter.
 
-    python3 scripts/torch_plan_split.py [RUNS]
+    python3 scripts/torch_plan_split.py [RUNS] [STAGE ...]
 
-On the benchmark's inputs (``benchmark/inputs.py``, seed 1: the Calgary
-corpus cut to 8 MiB for the one-shot and to 16 MiB for the archive), one
-warm call of ``gz.compress(x, 6)`` and one of
-``sharded_gzip_compress(x, 6)`` on the card record every ``plan_blocks``
-call's arguments and the growth of ``de.PLAN_COUNTS``.  Then RUNS
-(default 20) rounds plan each recorded batch with both planners in turns,
-on ``time.perf_counter``, and check the two equal.  Prints the card's
-name and power limit and one JSON line last.  Exits 2 without CUDA.
+STAGE is ``plan`` (``de.plan_blocks`` against ``de._plan_blocks_plain``,
+counter ``de.PLAN_COUNTS``) or ``tables`` (``lz77._cost_tables_host``
+against ``lz77._cost_tables_plain``, counter ``lz77.TABLE_COUNTS``);
+both by default.  On the benchmark's inputs (``benchmark/inputs.py``,
+seed 1: the Calgary corpus cut to 8 MiB for the one-shot and to 16 MiB
+for the archive), one warm call of ``gz.compress(x, 6)`` and one of
+``sharded_gzip_compress(x, 6)`` on the card record every call of the
+stage's arguments and the growth of its counter.  Then RUNS (default 20)
+rounds run each recorded batch through both versions in turns, on
+``time.perf_counter``, and check the two equal.  Prints the card's name
+and power limit and one JSON line last.  Exits 2 without CUDA.
 """
 
 from __future__ import annotations
@@ -27,32 +30,48 @@ import time
 HERE = pathlib.Path(__file__).resolve().parent.parent
 
 
-def _record(de, fn):
-    """Run ``fn`` with ``de.plan_blocks`` recording its calls; returns the
-    calls (args, kwargs) and ``PLAN_COUNTS``' growth."""
+def _stages():
+    """stage -> (module, native name, plain name, counter, counter keys)"""
+    from decompress_tpu_torch import de
+    from decompress_tpu_torch.ops import lz77
+
+    return {
+        "plan": (de, "plan_blocks", "_plan_blocks_plain", de.PLAN_COUNTS,
+                 ("stored", "fixed", "dynamic", "overflow")),
+        "tables": (lz77, "_cost_tables_host", "_cost_tables_plain", lz77.TABLE_COUNTS,
+                   ("rows", "overflow")),
+    }
+
+
+def _record(mod, name, counter, keys, fn):
+    """Run ``fn`` with ``mod.<name>`` recording its calls; returns the
+    calls (args, kwargs) and the counter's growth."""
     calls = []
-    native = de.plan_blocks
+    native = getattr(mod, name)
 
     def recording(*args, **kwargs):
         calls.append(([a.copy() if hasattr(a, "copy") else a for a in args], dict(kwargs)))
         return native(*args, **kwargs)
 
-    before = collections.Counter(de.PLAN_COUNTS)
-    de.plan_blocks = recording
+    before = collections.Counter(counter)
+    setattr(mod, name, recording)
     try:
         fn()
     finally:
-        de.plan_blocks = native
-    grown = {k: de.PLAN_COUNTS[k] - before[k] for k in ("stored", "fixed", "dynamic",
-                                                        "overflow")}
-    return calls, grown
+        setattr(mod, name, native)
+    return calls, {k: counter[k] - before[k] for k in keys}
 
 
 def _same(a, b) -> bool:
+    """Equal results of either stage: arrays by dtype and value, the rest
+    (the planner's kinds) by ``==``, through nested tuples."""
     import numpy as np
 
-    return a[2] == b[2] and all(x.dtype == y.dtype and np.array_equal(x, y)
-                                for x, y in zip((*a[0], *a[1]), (*b[0], *b[1])))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
 
 
 def main() -> int:
@@ -61,52 +80,57 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_plan_split: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    runs = int(sys.argv[1]) if len(sys.argv) > 1 else 20
+    args = sys.argv[1:]
+    runs = int(args.pop(0)) if args and args[0].isdigit() else 20
     sys.path.insert(0, str(HERE))
     import chip_smoke  # the card line
     from benchmark import inputs
-    from decompress_tpu_torch import de, gz
+    from decompress_tpu_torch import gz
     from decompress_tpu_torch.parallel import sharded
 
+    stages = _stages()
+    chosen = args or list(stages)
     card = chip_smoke.card_line()
     print(card, flush=True)
     one_shot = inputs.make_inputs("calgary", 8 << 20, 1, 1)[0]
     archive = inputs.make_inputs("calgary", 16 << 20, 1, 1)[0]
-    paths = {"gz6-8m": lambda: gz.compress(one_shot, 6),
-             "archive6-16m-write": lambda: sharded.sharded_gzip_compress(archive, 6)}
+    paths = {"gz6-8m": (lambda: gz.compress(one_shot, 6), len(one_shot)),
+             "archive6-16m-write": (lambda: sharded.sharded_gzip_compress(archive, 6),
+                                    len(archive))}
     out = {"card": card, "runs": runs}
-    for name, fn in paths.items():
-        fn()  # warm: builds, captures
-        torch.cuda.synchronize()
-        calls, counts = _record(de, fn)
-        torch.cuda.synchronize()
-        mb = sum(float(sum(int(v) for v in args[2][:len(args[0])])) for args, _ in calls) / 1e6
-        times = {"native": [], "plain": []}
-        for r in range(runs):
-            order = ("native", "plain") if r % 2 == 0 else ("plain", "native")
-            for which in order:
-                plan = de.plan_blocks if which == "native" else de._plan_blocks_plain
-                t0 = time.perf_counter()
-                results = [plan(*args, **kw) for args, kw in calls]
-                times[which].append(time.perf_counter() - t0)
-                if r == 0:
-                    if which == "native":
-                        native_results = results
-                    else:
-                        plain_results = results
-        equal = all(_same(a, b) for a, b in zip(native_results, plain_results))
-        row = {"batches": len(calls), "rows": sum(len(a[0]) for a, _ in calls), "MB": mb,
-               "counts": counts, "equal": equal}
-        for which, ts in times.items():
-            med = statistics.median(ts)
-            row[f"{which}_ms_per_batch"] = 1e3 * med / len(calls)
-            row[f"{which}_ms_per_MB"] = 1e3 * med / mb
-            row[f"{which}_ms_per_batch_quartiles"] = [
-                1e3 * q / len(calls) for q in statistics.quantiles(ts, n=4)]
-        out[name] = row
-        print(name, json.dumps(row), flush=True)
+    ok = True
+    for stage in chosen:
+        mod, name, plain_name, counter, keys = stages[stage]
+        for path, (fn, n_bytes) in paths.items():
+            fn()  # warm: builds, captures
+            torch.cuda.synchronize()
+            calls, counts = _record(mod, name, counter, keys, fn)
+            torch.cuda.synchronize()
+            mb = n_bytes / 1e6
+            times = {"native": [], "plain": []}
+            results = {}
+            for r in range(runs):
+                order = ("native", "plain") if r % 2 == 0 else ("plain", "native")
+                for which in order:
+                    f = getattr(mod, name if which == "native" else plain_name)
+                    t0 = time.perf_counter()
+                    res = [f(*a, **kw) for a, kw in calls]
+                    times[which].append(time.perf_counter() - t0)
+                    results.setdefault(which, res)
+            equal = all(_same(a, b) for a, b in zip(results["native"], results["plain"]))
+            ok = ok and equal
+            row = {"batches": len(calls), "rows": sum(len(a[0]) for a, _ in calls),
+                   "MB": mb, "counts": counts, "equal": equal}
+            for which, ts in times.items():
+                med = statistics.median(ts)
+                row[f"{which}_ms_per_batch"] = 1e3 * med / len(calls)
+                row[f"{which}_ms_per_MB"] = 1e3 * med / mb
+                row[f"{which}_ms_per_batch_quartiles"] = [
+                    1e3 * q / len(calls) for q in statistics.quantiles(ts, n=4)]
+            out[f"{stage}.{path}"] = row
+            print(stage, path, json.dumps(row), flush=True)
     print(json.dumps(out))
-    return 0 if all(out[n]["equal"] for n in paths) else 1
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

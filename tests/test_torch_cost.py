@@ -8,8 +8,16 @@ port's int32 ``lz77_parse_cost`` against the reference's (its XLA
 float32 branch on the CPU), array for array, without and with history,
 hot-stride mining and a 1 KiB window; the copied host helpers
 (``_cost_tables_host``, ``_hot_dists_host``) against the reference's.
-All comparisons are exact: the pipeline is integer end to end.
+The native cost tables (``native/plan.cpp``) equal their Python model
+(``_cost_tables_plain``) and the reference's on drawn batches, whole
+level-6 streams and archives are the same with either, and
+``lz77.TABLE_COUNTS`` counts rows and redistributed trees.  All
+comparisons are exact: the pipeline is integer end to end.
 """
+
+import collections
+import gzip
+import pathlib
 
 import numpy as np
 import pytest
@@ -19,8 +27,12 @@ import jax.numpy as jnp
 
 from decompress_tpu.ops import cost_pl
 from decompress_tpu.ops import lz77 as ref
-from decompress_tpu_torch import de
+from decompress_tpu_torch import de, gz
+from decompress_tpu_torch.core import huffman
 from decompress_tpu_torch.ops import cost_cu, lz77
+from decompress_tpu_torch.parallel import sharded
+
+CORPUS = pathlib.Path(__file__).parent / "corpus"
 
 SEG = 8192
 T = 1024
@@ -272,3 +284,124 @@ def test_host_helpers_match_reference():
                     ref._cost_tables_host(hist_lit, hist_dist)):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
+
+
+def _fib(n: int) -> np.ndarray:
+    """1, 2, 3, 5, ...: a Huffman chain n - 1 deep."""
+    f = [1, 2]
+    while len(f) < n:
+        f.append(f[-1] + f[-2])
+    return np.array(f[:n], np.int64)
+
+
+def _overflows(hl, hd) -> bool:
+    """Whether a row's literal (one EOB added) or distance tree is deeper
+    than 15 bits, so that its lengths are redistributed."""
+    h = hl.astype(np.int64)
+    h[256] += 1
+    return any(not np.array_equal(huffman.code_lengths_from_frequencies(f, 15),
+                                  huffman.code_lengths_from_frequencies(f, 40))
+               for f in (h, hd.astype(np.int64)))
+
+
+def _deep_rows(rng, b):
+    """Rows whose trees are forced past 15 bits: Fibonacci counts over
+    20-30 random symbols of the literals (row 0 of every three), the
+    distances (row 1) or both (row 2)."""
+    hl = rng.integers(0, 50, (b, 286))
+    hd = rng.integers(0, 20, (b, 30))
+    for i in range(b):
+        which = i % 3
+        if which != 1:
+            k = int(rng.integers(20, 31))
+            hl[i] = 0
+            hl[i, rng.choice(286, k, replace=False)] = _fib(k)
+        if which != 0:
+            hd[i] = _fib(30)[rng.permutation(30)]
+    return hl, hd
+
+
+def _edge_rows(rng, b):
+    """All-zero rows, one symbol, EOB alone, symbol 0 alone, one distance."""
+    hl = np.zeros((b, 286), np.int64)
+    hd = np.zeros((b, 30), np.int64)
+    for i in range(b):
+        kind = rng.integers(0, 5)
+        if kind == 1:
+            hl[i, rng.integers(0, 286)] = rng.integers(1, 1000)
+            hd[i, rng.integers(0, 30)] = rng.integers(1, 1000)
+        elif kind == 2:
+            hl[i, 256] = rng.integers(1, 5)
+        elif kind == 3:
+            hl[i, 0] = rng.integers(1, 5)
+            hd[i, 0] = rng.integers(1, 5)
+        elif kind == 4:
+            hd[i, rng.integers(0, 30)] = 1
+    return hl, hd
+
+
+#: batch kind -> rows drawn from (rng, b)
+_DRAWS = {
+    "dense": lambda rng, b: (rng.integers(0, 5000, (b, 286)),
+                             rng.integers(0, 500, (b, 30))),
+    "sparse": lambda rng, b: (rng.integers(0, 5000, (b, 286)) * (rng.random((b, 286)) < 0.15),
+                              rng.integers(0, 500, (b, 30)) * (rng.random((b, 30)) < 0.3)),
+    "heavy_tail": lambda rng, b: (rng.zipf(1.3, (b, 286)) - 1, rng.zipf(1.5, (b, 30)) - 1),
+    "ties": lambda rng, b: (rng.integers(0, 3, (b, 286)), rng.integers(0, 3, (b, 30))),
+    "edge": _edge_rows,
+    "deep": _deep_rows,
+}
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("kind", sorted(_DRAWS))
+def test_native_cost_tables_equal_plain_and_reference(kind, dtype):
+    """Forty seeded batches of 1-8 rows a kind and dtype (480 in all):
+    the native tables equal the Python model's and the reference's in
+    dtype, shape and every entry."""
+    rng = np.random.default_rng([sorted(_DRAWS).index(kind), np.dtype(dtype).itemsize])
+    for _ in range(40):
+        hl, hd = _DRAWS[kind](rng, int(rng.integers(1, 9)))
+        hl, hd = hl.astype(dtype), hd.astype(dtype)
+        got = lz77._cost_tables_host(hl, hd)
+        for want in (lz77._cost_tables_plain(hl, hd), ref._cost_tables_host(hl, hd)):
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype == np.float32 and g.shape == w.shape
+                np.testing.assert_array_equal(g, w)
+
+
+def test_table_counts_count_rows_and_overflow():
+    rng = np.random.default_rng(7)
+    hl, hd = _deep_rows(rng, 5)
+    hl2, hd2 = _DRAWS["ties"](rng, 3)
+    hl, hd = np.concatenate([hl, hl2]), np.concatenate([hd, hd2])
+    overflow = sum(_overflows(a, d) for a, d in zip(hl, hd))
+    assert overflow == 5
+    before = collections.Counter(lz77.TABLE_COUNTS)
+    lz77._cost_tables_host(hl, hd)
+    got = {k: lz77.TABLE_COUNTS[k] - before[k] for k in ("rows", "overflow")}
+    assert got == {"rows": 8, "overflow": overflow}
+
+
+def test_cost_tables_refuse_other_widths():
+    with pytest.raises(ValueError, match="histograms"):
+        lz77._cost_tables_host(np.zeros((2, 285), np.int32), np.zeros((2, 30), np.int32))
+
+
+def test_whole_streams_equal_with_the_plain_tables(monkeypatch):
+    """A 36,000-byte Calgary prefix at level 6 in 4 KiB segments (two
+    batches): the gzip stream and the indexed archive are the same bytes
+    with the native tables as with the Python ones."""
+    x = (CORPUS / "paper1").read_bytes()[:36_000]
+
+    def both():
+        return (gz.compress(x, 6, segment_size=4096, device="cpu"),
+                sharded.sharded_gzip_compress(x, 6, member_size=4096, device="cpu"))
+
+    before = collections.Counter(lz77.TABLE_COUNTS)
+    native = both()
+    assert (lz77.TABLE_COUNTS - before)["rows"] >= 18
+    monkeypatch.setattr(lz77, "_cost_tables_host", lz77._cost_tables_plain)
+    assert native == both()
+    assert gzip.decompress(native[0]) == x
+    assert gzip.decompress(native[1]) == x
