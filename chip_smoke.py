@@ -388,15 +388,14 @@ def masked_slots(torch, slots):
     return (v01 & ((one << n01) - 1), n01, v23 & ((one << n23) - 1), n23)
 
 
-def corpus_batch(torch, de, dev, arr):
-    """The first MAX_DEVICE_BATCH segments of the corpus, assembled on
-    the card -> (d_data, n_valid numpy, nv, hl, b)."""
-    payload, head, n_valid, hist_len, b = de._build_batch_payload(
-        arr, 0, de.MAX_DEVICE_BATCH, de.SEGMENT_SIZE)
-    d_data = de._assemble_batch_device(torch.from_numpy(payload).to(dev),
-                                       torch.from_numpy(head).to(dev))
-    return (d_data, n_valid, torch.from_numpy(n_valid).to(dev),
-            torch.from_numpy(hist_len).to(dev), b)
+def corpus_batch(de, dev, arr):
+    """The first MAX_DEVICE_BATCH segments of the corpus, staged as the
+    one-shot stages them (histories put together on the card) ->
+    (d_data, n_valid numpy, nv, hl, b)."""
+    seg = de.SEGMENT_SIZE
+    rows = de.batch_rows(*de._segments(arr, 0, de.MAX_DEVICE_BATCH, seg), seg)
+    batch = de.Batch(rows, dev)
+    return batch.data, rows.n_valid, batch.n_valid, batch.hist_len, rows.b
 
 
 def round_a_kernel_args(torch, lz77, cost_cu, d_data, nv, hl, seg: int) -> dict:
@@ -453,9 +452,9 @@ ROUND_A_CASES = (
     ("odd", dict(level=1)))
 
 
-def round_a_rows(arr, case: str):
-    """(data, n_valid, hist_len, seg_len), numpy, of a round-A batch of
-    the corpus ``arr``: "production" its first 8 segments of 130,560
+def round_a_rows(arr, case: str, dev):
+    """(data, n_valid, hist_len, seg_len), staged on ``dev`` as the
+    compressor stages them, of a round-A batch of the corpus ``arr``: "production" its first 8 segments of 130,560
     bytes behind their 32 KiB history (row 0 with none), "tail" the B = 1
     tail batch (its last, 32,768-byte segment), "odd" 3 segments of 4,999
     bytes (T off the probe tile), "extremes" an all-zero row (every rank
@@ -480,7 +479,8 @@ def round_a_rows(arr, case: str):
                   "odd": [12345 + i * seg for i in range(3)]}[case]
         chunks = [arr[s:s + seg] for s in starts]
         hists = [arr[max(0, s - lz77.HIST):s] for s in starts]
-    return de._history_rows(chunks, hists, seg) + (seg,)
+    batch = de.Batch(de.batch_rows(chunks, hists, seg), dev)
+    return batch.data, batch.n_valid, batch.hist_len, seg
 
 
 def round_a_calls(torch, dev, arr, case: str, kw: dict) -> dict:
@@ -489,8 +489,7 @@ def round_a_calls(torch, dev, arr, case: str, kw: dict) -> dict:
     of the case's batch on ``dev``."""
     from decompress_tpu_torch.ops import lz77, probe_cu
 
-    *rows, seg = round_a_rows(arr, case)
-    rows = [torch.from_numpy(a).to(dev) for a in rows]
+    *rows, seg = round_a_rows(arr, case, dev)
     return captured_args(probe_cu, CANDIDATE_SEARCH,
                          lambda: lz77.lz77_analyze.eager(*rows, seg_len=seg, **kw))
 
@@ -588,8 +587,8 @@ def program_cases(torch, dev, arr) -> list:
     from decompress_tpu_torch.parallel import sharded
 
     seg = de.SEGMENT_SIZE
-    prod = [torch.from_numpy(a).to(dev) for a in round_a_rows(arr, "production")[:3]]
-    tail = [torch.from_numpy(a).to(dev) for a in round_a_rows(arr, "tail")[:3]]
+    prod = round_a_rows(arr, "production", dev)[:3]
+    tail = round_a_rows(arr, "tail", dev)[:3]
     d_data, nv, hl = prod
     res = lz77.lz77_analyze.eager(*prod, level=6, seg_len=seg)
     lc, dc = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in lz77._cost_tables_host(
@@ -774,7 +773,7 @@ def kernel_checks(torch, dev, arr, card) -> dict:
     from decompress_tpu_torch.ops import cost_cu, hist_cu, lz77, pack_cu, parse_cu
 
     seg = de.SEGMENT_SIZE
-    d_data, n_valid, nv, hl, b = corpus_batch(torch, de, dev, arr)
+    d_data, n_valid, nv, hl, b = corpus_batch(de, dev, arr)
     lit = d_data[:, lz77.HIST:]
 
     # level 4: mark path, histograms, slot build
@@ -1453,11 +1452,11 @@ def streaming_path(torch, dev, data: bytes, wrappers, card) -> None:
     from decompress_tpu_torch.ops import cost_cu, hist_cu, lz77, parse_cu
 
     analyses = [0]
-    analyze2 = lz77.analyze2
+    start = lz77.analyze2_start  # one a device analysis (``de.Batch.start``)
 
     def counted(*args, **kw):
         analyses[0] += 1
-        return analyze2(*args, **kw)
+        return start(*args, **kw)
 
     def refills(x):
         pieces = iter([x[i:i + STREAM_PIECE] for i in range(0, len(x), STREAM_PIECE)])
@@ -1488,7 +1487,7 @@ def streaming_path(torch, dev, data: bytes, wrappers, card) -> None:
         if missing:
             raise AssertionError(f"{label} did not launch {missing}")
 
-    lz77.analyze2 = counted
+    lz77.analyze2_start = counted
     try:
         gz_out, cold, warm, launches = cold_warm(torch, stream_gz, wrappers)
         n_gz = analyses[0] // 2
@@ -1522,7 +1521,7 @@ def streaming_path(torch, dev, data: bytes, wrappers, card) -> None:
               f"device calls; wall {q_s:.4f} s = {len(head) / q_s / 1e6:.2f} MB/s "
               f"[{card}]", flush=True)
     finally:
-        lz77.analyze2 = analyze2
+        lz77.analyze2_start = start
 
     def stream_head():
         enc = gz.Def(6)
@@ -1562,21 +1561,20 @@ def streaming_path(torch, dev, data: bytes, wrappers, card) -> None:
     raw = de._np_u8(data)
     chunk = 16384
     starts = [1 << 20] + [(1 << 20) + chunk * i for i in range(1, de.MAX_DEVICE_BATCH)]
-    rows = de._history_rows([raw[s:s + chunk] for s in starts],
-                            [raw[s - lz77.HIST:s] for s in starts], chunk)
+    rows = de.Batch(de.batch_rows([raw[s:s + chunk] for s in starts],
+                                  [raw[s - lz77.HIST:s] for s in starts], chunk), dev)
     seg = de.SEGMENT_SIZE
-    one = de._history_rows([raw[3 * seg:4 * seg]], [raw[3 * seg - lz77.HIST:3 * seg]], seg)
+    one = de.Batch(de.batch_rows([raw[3 * seg:4 * seg]], [raw[3 * seg - lz77.HIST:3 * seg]],
+                                 seg), dev)
     plain = {"mark_path": (parse_cu.mark_path, parse_cu.mark_path_plain, lambda o: (o,)),
              "histograms": (hist_cu.histograms, hist_cu.histograms_plain, lambda o: o),
              "litbits": (cost_cu.litbits_pref, cost_cu.litbits_pref_plain, lambda o: o),
              "gain": (cost_cu.gain, cost_cu.gain_plain, lambda o: o)}
-    for label, (data_np, nv_np, hl_np), seg_len in [
+    for label, batch, seg_len in [
             ("queue-engine batch (B=8, T=49,152, P=2^14)", rows, chunk),
             ("streamed segment (B=1, T=163,328, P=2^17)", one, seg)]:
-        d_data = torch.from_numpy(data_np).to(dev)
-        nv = torch.from_numpy(nv_np).to(dev)
-        hl = torch.from_numpy(hl_np).to(dev)
-        args = round_a_kernel_args(torch, lz77, cost_cu, d_data, nv, hl, seg_len)
+        args = round_a_kernel_args(torch, lz77, cost_cu, batch.data, batch.n_valid,
+                                   batch.hist_len, seg_len)
         for name, (kernel, plain_fn, norm) in plain.items():
             stat = check_kernel(torch, f"{name} at the {label}", kernel, plain_fn,
                                 [args[name]], norm, card=card, plain_iters=3)

@@ -5,9 +5,11 @@ Counterpart of ``decompress_tpu/de.py: deflate`` for levels 0-12 and the
 reference's: device LZ77 analysis of up to ``MAX_DEVICE_BATCH`` segments
 of ``SEGMENT_SIZE`` bytes, each with its 32 KiB history, with the
 cost-aware round B at levels 5-12 (``ops/lz77.py``, ``ops/cost_cu.py``);
-host block planning and Huffman tables (``plan_blocks``, copied from the
-reference); device slot build and bit pack (``ops/pack_cu.py``,
-``ops/bitpack.py``); host assembly.  Round A of the next
+host block planning and Huffman tables (``plan_blocks``, one native call
+a batch); device slot build and bit pack (``ops/pack_cu.py``,
+``ops/bitpack.py``); host assembly.  Every compressor on the card runs
+its batches through one path (:func:`batch_rows`, :class:`Batch`,
+:func:`drain`, :func:`write_parts`).  Round A of the next
 ``PIPELINE_DEPTH`` batches is dispatched ahead of the host's work on the
 current one (:func:`_deflate_pipelined`), with every host read ordered by
 its own batch's event (``ops/transfer.py``).  The output is
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import typing
 
 import numpy as np
 import torch
@@ -46,7 +49,7 @@ from .core.tables import (
     PRECODE_ORDER,
     WINDOW_SIZE,
 )
-from .ops import bitpack, graphs, lz77, pack_cu, transfer
+from .ops import bitpack, checksum, graphs, lz77, pack_cu, transfer
 from .utils import profiling
 
 # ---------------------------------------------------------------------------
@@ -194,16 +197,6 @@ def symbol_cost_bits(hist_lit: np.ndarray, hist_dist: np.ndarray,
     return lit + dst
 
 
-def stored_cost_bits(n: int, bitpos_in_byte: int) -> int:
-    """Exact stored-block cost: each chunk is a 3-bit header, padding to
-    the next byte boundary, a 32-bit LEN/NLEN word, then the raw bytes;
-    chunks after the first start byte-aligned (5 bits of padding)."""
-    nchunks = max(1, (n + 65534) // 65535)
-    bits = 3 + ((-(bitpos_in_byte + 3)) % 8) + 32
-    bits += (nchunks - 1) * (3 + 5 + 32)
-    return bits + 8 * n
-
-
 def _np_u8(data) -> np.ndarray:
     if isinstance(data, np.ndarray) and data.dtype == np.uint8:
         return data
@@ -255,7 +248,7 @@ def plan_blocks(hist_lit, hist_dist, n_valid, final_flags, *, pad_to=None,
     per-block stored/fixed fallback still applies.
 
     One native call plans the batch (``native/plan.cpp``); its output is
-    :func:`_plan_blocks_plain`'s byte for byte.
+    the reference's ``plan_blocks``' byte for byte.
 
     Returns ((hdr_vals, hdr_bits), (lit_codes, lit_bits, dist_codes,
     dist_bits, eob_vals, eob_bits), kinds).
@@ -273,80 +266,6 @@ def plan_blocks(hist_lit, hist_dist, n_valid, final_flags, *, pad_to=None,
     PLAN_COUNTS.update(stored=n_stored, fixed=n_fixed, dynamic=n_dynamic,
                        overflow=overflow)
     return outs[:2], outs[2:], _KIND_NAMES[kinds].tolist()
-
-
-def _plan_blocks_plain(hist_lit, hist_dist, n_valid, final_flags, *, pad_to=None,
-                       force_block=None, shared_tree=False):
-    """The plain model of :func:`plan_blocks`: the reference's planner, a
-    Python loop over the rows.  The tests hold the native planner to it."""
-    b = hist_lit.shape[0]
-    b_pad = pad_to or b
-    shared = None
-    if shared_tree:
-        if isinstance(shared_tree, tuple):
-            shared = shared_tree  # precomputed (lit_len, dist_len, header)
-        else:
-            hl_sum = hist_lit.astype(np.int64).sum(axis=0)
-            hl_sum[EOB] += b  # one EOB per block
-            hd_sum = hist_dist.astype(np.int64).sum(axis=0)
-            s_lit_len = huffman.code_lengths_from_frequencies(hl_sum)
-            s_dist_len = huffman.code_lengths_from_frequencies(hd_sum)
-            shared = (s_lit_len, s_dist_len,
-                      build_dynamic_header(s_lit_len, s_dist_len))
-    hdr_vals = np.zeros((b_pad, _HDR_PAD), dtype=np.uint32)
-    hdr_bits = np.zeros((b_pad, _HDR_PAD), dtype=np.int32)
-    lit_codes = np.zeros((b_pad, NUM_LIT_SYMS), dtype=np.uint32)
-    lit_bits = np.zeros((b_pad, NUM_LIT_SYMS), dtype=np.int32)
-    dist_codes = np.zeros((b_pad, NUM_DIST_SYMS), dtype=np.uint32)
-    dist_bits = np.zeros((b_pad, NUM_DIST_SYMS), dtype=np.int32)
-    eob_vals = np.zeros((b_pad, 1), dtype=np.uint32)
-    eob_bits = np.zeros((b_pad, 1), dtype=np.int32)
-    kinds = []
-    for i in range(b):
-        final = bool(final_flags[i])
-        hl = hist_lit[i].astype(np.int64)
-        hl[EOB] += 1
-        hd = hist_dist[i].astype(np.int64)
-
-        if shared is not None:
-            dyn_lit_len, dyn_dist_len, header = shared
-        else:
-            dyn_lit_len = huffman.code_lengths_from_frequencies(hl)
-            dyn_dist_len = huffman.code_lengths_from_frequencies(hd)
-            header = build_dynamic_header(dyn_lit_len, dyn_dist_len)
-        cost_dyn = 3 + header.bit_length + symbol_cost_bits(hl, hd, dyn_lit_len, dyn_dist_len)
-        cost_fix = 3 + symbol_cost_bits(hl, hd, _FIXED_LIT_BITS, _FIXED_DIST_BITS)
-        cost_sto = stored_cost_bits(int(n_valid[i]), 0)
-
-        # forbidding dynamic trees does not forbid stored blocks (zlib's
-        # Z_FIXED), or incompressible data would expand
-        cost_packed = cost_fix if force_block == "fixed" else min(cost_dyn, cost_fix)
-        if cost_sto < cost_packed:
-            kinds.append("stored")
-            continue
-        if force_block == "fixed" or (force_block is None and cost_fix <= cost_dyn):
-            kinds.append("fixed")
-            ll, dl = tables.FIXED_LIT_LENGTHS, tables.FIXED_DIST_LENGTHS[:30]
-            pairs = [(1 if final else 0, 1), (1, 2)]
-        else:
-            kinds.append("dynamic")
-            ll, dl = dyn_lit_len, dyn_dist_len
-            pairs = [(1 if final else 0, 1), (2, 2)]
-        lc = huffman.canonical_codes(ll)
-        dc = huffman.canonical_codes(dl)
-        lit_codes[i, : lc.size] = lc[:NUM_LIT_SYMS]
-        lit_bits[i, : lc.size] = ll[:NUM_LIT_SYMS]
-        dist_codes[i] = dc[:NUM_DIST_SYMS]
-        dist_bits[i] = dl[:NUM_DIST_SYMS]
-        eob_vals[i, 0] = lc[EOB]
-        eob_bits[i, 0] = ll[EOB]
-        if kinds[-1] == "dynamic":
-            pairs += list(zip(header.values.tolist(), header.nbits.tolist()))
-        for j, (v, nb) in enumerate(pairs):
-            hdr_vals[i, j] = v
-            hdr_bits[i, j] = nb
-    tabs = (lit_codes, lit_bits, dist_codes, dist_bits, eob_vals, eob_bits)
-    return (hdr_vals, hdr_bits), tabs, kinds
 
 
 def _parse_dynamic_lengths(r: bitstream.BitReader):
@@ -650,13 +569,9 @@ def deflate(data, level: int | None = None, *, segment_size: int | None = None,
 
     seg = segment_size or SEGMENT_SIZE
     nseg = (n + seg - 1) // seg
-    head = None
-    if dictionary:
-        d = _np_u8(dictionary)
-        head = d[-min(d.size, tables.WINDOW_SIZE):]
     _deflate_pipelined(w, arr, nseg, level, seg, dev,
-                       force_block=None if dynamic else "fixed",
-                       window_bits=window_bits, dict_hist=head)
+                       force_block=None if dynamic else "fixed", window_bits=window_bits,
+                       dict_hist=_np_u8(dictionary) if dictionary else None)
     with profiling.span("schedule.assemble"):
         return w.getvalue()
 
@@ -667,72 +582,217 @@ def deflate(data, level: int | None = None, *, segment_size: int | None = None,
 PIPELINE_DEPTH = 4
 
 
-def _batch_rows(b: int) -> int:
-    """Rows a batch of b segments is padded to (the reference's shapes)."""
-    return MAX_DEVICE_BATCH if b == MAX_DEVICE_BATCH else 1 << (b - 1).bit_length()
+# ---------------------------------------------------------------------------
+# The batch path of every compressor on the card (the one-shot, the
+# archive, the streaming encoders and LZO): one row builder
+# (:func:`batch_rows`), one batch record (:class:`Batch`), one drain
+# (:func:`drain`) and one writer of its member parts (:func:`write_parts`).
+# ---------------------------------------------------------------------------
 
 
-def _history_len(start: int, dlen: int) -> int:
-    return min(lz77.HIST, start + dlen)
+class Rows(typing.NamedTuple):
+    """A batch's host rows (:func:`batch_rows`): ``data``
+    uint8[rows, off + seg] holds row i's payload at ``off`` (HIST where
+    the rows carry their own history, else 0); ``head`` is the first
+    row's history where the card puts the others together from the row
+    before, else None; ``n_valid`` and ``hist_len`` are int32[rows]
+    (``hist_len`` None for rows with no history); the first ``b`` rows
+    hold a chunk, the rest pad the batch."""
+
+    data: np.ndarray
+    head: np.ndarray | None
+    n_valid: np.ndarray
+    hist_len: np.ndarray | None
+    b: int
+    off: int
+
+    def payload(self, i: int) -> np.ndarray:
+        return self.data[i, self.off:self.off + self.n_valid[i]]
 
 
-def _fill_history(out: np.ndarray, arr, start: int, hl: int, dict_hist) -> None:
-    """Write the hl history bytes before ``start`` into the tail of
-    ``out`` (HIST bytes): preset-dictionary bytes, then input bytes."""
-    from_arr = min(hl, start)
-    from_dict = hl - from_arr
-    if from_dict:
-        out[lz77.HIST - hl: lz77.HIST - from_arr] = \
-            dict_hist[dict_hist.size - from_dict:]
-    if from_arr:
-        out[lz77.HIST - from_arr:] = arr[start - from_arr: start]
+def batch_rows(chunks, hists, seg: int, *, rows: int | None = None) -> Rows:
+    """One row per chunk (at most ``seg`` bytes), behind the last HIST bytes
+    of its history ``hists[i]``, padded to ``rows`` rows (by default the
+    reference's shapes: MAX_DEVICE_BATCH, or the next power of two).
+
+    The layout follows the input: with ``hists`` None, rows of payload
+    alone (members with no history, analysed at ``hist=0``); where ``seg``
+    is at least HIST and each row's history is the tail of the chunk
+    before it, rows of payload and the first row's history (``head``), the
+    other histories put together on the card; else rows that carry their
+    own history."""
+    hist = lz77.HIST
+    chunks = [_np_u8(c) for c in chunks]
+    b = len(chunks)
+    rows = rows or (MAX_DEVICE_BATCH if b == MAX_DEVICE_BATCH else 1 << (b - 1).bit_length())
+    n_valid = np.zeros(rows, dtype=np.int32)
+    n_valid[:b] = [c.size for c in chunks]
+    if n_valid.max() > seg:
+        raise ValueError("chunk larger than segment")
+    head = hist_len = None
+    off = 0
+    if hists is not None:
+        hists = [_np_u8(h)[-hist:] for h in hists]
+        hist_len = np.zeros(rows, dtype=np.int32)
+        hist_len[:b] = [h.size for h in hists]
+        if seg >= hist and all(c.size == seg and h.size == hist and np.array_equal(h, c[-hist:])
+                               for c, h in zip(chunks, hists[1:])):
+            head = np.zeros(hist, dtype=np.uint8)
+            head[hist - hists[0].size:] = hists[0]
+        else:
+            off = hist
+    data = np.zeros((rows, off + seg), dtype=np.uint8)
+    for i, c in enumerate(chunks):
+        if off:
+            data[i, hist - hist_len[i]: hist] = hists[i]
+        data[i, off: off + c.size] = c
+    return Rows(data, head, n_valid, hist_len, b, off)
 
 
-def _build_batch(arr, seg_lo, seg_hi, seg, dict_hist=None):
-    """Host-built batch for seg < HIST: every row carries its own
-    history.  Returns (data uint8[b_pad, HIST + seg], n_valid, hist_len, b)."""
-    dlen = 0 if dict_hist is None else dict_hist.size
+def _segments(arr, lo: int, hi: int, seg: int, head=None):
+    """(chunks, hists) of segments ``lo``..``hi`` of ``arr`` (segment s is
+    ``arr[s * seg:(s + 1) * seg]``), each history the HIST bytes before its
+    segment, ``head`` (a preset dictionary) before ``arr[0]``."""
     chunks, hists = [], []
-    for s in range(seg_lo, seg_hi):
+    for s in range(lo, hi):
         start = s * seg
-        hl = _history_len(start, dlen)
-        head = np.zeros(lz77.HIST, dtype=np.uint8)
-        _fill_history(head, arr, start, hl, dict_hist)
+        h = arr[max(0, start - lz77.HIST): start]
+        if h.size < lz77.HIST and head is not None:
+            h = np.concatenate([head[h.size - lz77.HIST:], h])
         chunks.append(arr[start: start + seg])
-        hists.append(head[lz77.HIST - hl:])
-    data, n_valid, hist_len = _history_rows(chunks, hists, seg)
-    return data, n_valid, hist_len, seg_hi - seg_lo
+        hists.append(h)
+    return chunks, hists
 
 
-def _build_batch_payload(arr, seg_lo, seg_hi, seg, dict_hist=None):
-    """Payload-only host buffers for :func:`_assemble_batch_device`
-    (seg >= HIST, so one previous row covers the window).  Returns
-    (payload uint8[b_pad, seg], head uint8[HIST], n_valid, hist_len, b)."""
-    n = arr.size
-    b = seg_hi - seg_lo
-    b_pad = _batch_rows(b)
-    dlen = 0 if dict_hist is None else dict_hist.size
-    payload = np.zeros((b_pad, seg), dtype=np.uint8)
-    n_valid = np.zeros(b_pad, dtype=np.int32)
-    hist_len = np.zeros(b_pad, dtype=np.int32)
-    for i, s in enumerate(range(seg_lo, seg_hi)):
-        start = s * seg
-        stop = min(start + seg, n)
-        n_valid[i] = stop - start
-        hist_len[i] = _history_len(start, dlen)
-        payload[i, : stop - start] = arr[start:stop]
-    start0 = seg_lo * seg
-    head = np.zeros(lz77.HIST, dtype=np.uint8)
-    _fill_history(head, arr, start0, _history_len(start0, dlen), dict_hist)
-    return payload, head, n_valid, hist_len, b
+class Part(typing.NamedTuple):
+    """One member of a drained batch: ``kind`` "stored" with its bytes in
+    ``data``, or "packed" with ``bits`` packed bits in ``data`` (BFINAL
+    included); packed with split points, ``splits`` holds the (bit,
+    command, output) triples and ``ncmds`` the commands with the EOB; and
+    ``crc`` the member's CRC-32 where the pack computed it."""
+
+    kind: str
+    data: np.ndarray
+    bits: int
+    final: bool
+    splits: list | None = None
+    ncmds: int = 0
+    crc: int | None = None
 
 
-def _assemble_batch_device(payload: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """Device-side batch assembly: row i's history is row i-1's payload
-    tail, so only the first row's history crosses to the device."""
-    hist = head.shape[0]
-    hists = torch.cat([head[None], payload[:-1, payload.shape[1] - hist:]], 0)
-    return torch.cat([hists, payload], 1)
+_SPLIT_KEYS = ("sp_bits", "sp_cmds", "sp_outs", "sp_n")
+
+
+class Batch:
+    """One batch of rows through the card, in the steps a schedule orders:
+    the constructor stages the rows (every upload through
+    ``transfer.upload``, the pinned sources held in ``keep`` until the
+    batch is drained); :meth:`start` dispatches round A; :meth:`finish`
+    makes it exact, runs round B at the two-round levels and reads the
+    histograms; :meth:`pack` plans the blocks, packs them and queues one
+    Fetch of what :func:`drain` reads.  ``first`` is the index of the
+    batch's first row in its input."""
+
+    def __init__(self, rows: Rows, dev: torch.device, first: int = 0):
+        self.rows, self.first = rows, first
+        self.seg = rows.data.shape[1] - rows.off
+        self.keep: list = []
+        self.data = transfer.upload(rows.data, dev, self.keep)
+        if rows.head is not None:  # row i's history is row i-1's payload tail
+            head = transfer.upload(rows.head, dev, self.keep)
+            hists = torch.cat([head[None], self.data[:-1, self.seg - lz77.HIST:]], 0)
+            self.data = torch.cat([hists, self.data], 1)
+        self.n_valid = transfer.upload(rows.n_valid, dev, self.keep)
+        self.hist = 0 if rows.hist_len is None else lz77.HIST
+        self.hist_len = (torch.zeros(len(rows.n_valid), dtype=torch.int32, device=dev)
+                         if rows.hist_len is None else
+                         transfer.upload(rows.hist_len, dev, self.keep))
+
+    def start(self, level: int, window_bits: int = 15) -> Batch:
+        """Round A, with no host sync (``lz77.analyze2_start``)."""
+        self.level, self.window_bits = level, window_bits
+        self.res = lz77.analyze2_start(self.data, self.n_valid, self.hist_len, level=level,
+                                       seg_len=self.seg, window_bits=window_bits,
+                                       hist=self.hist)
+        return self
+
+    def finish(self) -> Batch:
+        """The repairs and round B (``lz77.analyze2_finish``), then the
+        histograms of the valid rows on the host."""
+        self.res = lz77.analyze2_finish(self.res, self.data, self.n_valid, self.hist_len,
+                                        level=self.level, seg_len=self.seg,
+                                        window_bits=self.window_bits, hist=self.hist)
+        hist_lit, hist_dist = transfer.read(self.res, "hist_lit", "hist_dist")
+        self.hist_lit, self.hist_dist = hist_lit[:self.rows.b], hist_dist[:self.rows.b]
+        return self
+
+    def pack(self, final, *, force_block=None, shared_tree=False, n_splits: int = 0,
+             split_stride: int = 2048, split_bits: int = 0, crc: bool = False) -> Batch:
+        """Plan the blocks (row i a final block where ``final[i]``), pack
+        them (with the split points where ``n_splits > 1``; see
+        :func:`pack_segments`), compute the rows' CRC-32s where ``crc``,
+        and queue one Fetch of it all."""
+        b = self.rows.b
+        self.final, self.n_splits, self.crc = final, n_splits, crc
+        (hdr_vals, hdr_bits), tabs, self.kinds = plan_blocks(
+            self.hist_lit, self.hist_dist, self.rows.n_valid[:b], final,
+            pad_to=len(self.rows.n_valid), force_block=force_block, shared_tree=shared_tree)
+        # any packed (non-stored) block beat the stored cost, so < ~9 bits/byte
+        out_words = (9 * self.seg) // 32 + 2 * _HDR_PAD
+        sym_lit = self.data[:, self.hist:]
+        packed = pack_segments(self.res, sym_lit, hdr_vals, hdr_bits, *tabs,
+                               out_words=out_words, n_splits=n_splits,
+                               split_stride=split_stride, split_bits=split_bits)
+        (words, totals), splits = packed if n_splits > 1 else (packed, ())
+        outs = {"totals": totals, "words": words, **dict(zip(_SPLIT_KEYS, splits))}
+        if crc:
+            outs["crcs"] = checksum.crc32_rows_device(sym_lit, self.n_valid)
+        self.fetch = transfer.Fetch(outs)
+        return self
+
+
+def drain(batches) -> list[Part]:
+    """The member parts of packed batches, in order: each batch's Fetch
+    waited for, and its words cut once to the width the packed rows use."""
+    parts = []
+    for batch in batches:
+        b, kinds = batch.rows.b, batch.kinds
+        keys = ("totals", "words") + (_SPLIT_KEYS if batch.n_splits > 1 else ())
+        got = dict(zip(keys, (a[:b] for a in batch.fetch.wait(*keys))))
+        # the CRC-32s in a wait of their own: the archive's count of waits
+        # (``transfer.COUNTS``) stays what it was
+        crcs = batch.fetch.wait("crcs")[0][:b].tolist() if batch.crc else [None] * b
+        splits, ncmds = [None] * b, [0] * b
+        if batch.n_splits > 1:
+            splits = [list(zip(*(got[k][i].tolist() for k in _SPLIT_KEYS[:3])))
+                      for i in range(b)]
+            ncmds = got["sp_n"].tolist()
+        totals = got["totals"].tolist()
+        used = [totals[i] for i in range(b) if kinds[i] != "stored"]
+        cap = (max(used) + 31) // 32 + 1 if used else 0
+        words = got["words"][:, :cap].astype("<u4")
+        for i in range(b):
+            final = bool(batch.final[i])
+            if kinds[i] == "stored":
+                parts.append(Part("stored", batch.rows.payload(i), 0, final, crc=crcs[i]))
+            else:
+                parts.append(Part("packed", words[i].view(np.uint8), totals[i], final,
+                                  splits[i], ncmds[i], crcs[i]))
+    return parts
+
+
+def write_parts(w: bitstream.BitWriter, parts, *, sync: bool = False) -> None:
+    """Member parts into ``w``: a stored one as stored blocks, a packed one
+    as its bits; with ``sync``, each packed part that is not final is
+    followed by a sync flush (an empty stored block), so that the next
+    starts on a byte."""
+    for part in parts:
+        if part.kind == "stored":
+            _emit_stored(w, part.data, final=part.final)
+            continue
+        w.write_packed(part.data, part.bits)
+        if sync and not part.final:
+            _emit_stored(w, part.data[:0], final=False)
 
 
 def _deflate_pipelined(w, arr, nseg, level, seg, dev, force_block=None,
@@ -740,76 +800,29 @@ def _deflate_pipelined(w, arr, nseg, level, seg, dev, force_block=None,
     """Analyze, repair, plan and pack every batch of segments, with round A
     of the next ``PIPELINE_DEPTH`` batches dispatched ahead: first round A
     of the first batches, then for each batch in order, round A of the
-    next one, then the oldest in flight's finish (repairs, round B) and
-    its host half (:func:`_finish_batch`).  One stream carries it all, so
-    a batch's round B is queued behind the later batches' round A.  On
-    CUDA no host read blocks the stream: each waits on its own batch's
-    event (``ops/transfer``)."""
+    next one, then the oldest in flight's finish (repairs, round B), pack
+    and drain.  One stream carries it all, so a batch's round B is queued
+    behind the later batches' round A.  On CUDA no host read blocks the
+    stream: each waits on its own batch's event (``ops/transfer``)."""
     batches = [(lo, min(lo + MAX_DEVICE_BATCH, nseg))
                for lo in range(0, nseg, MAX_DEVICE_BATCH)]
 
     def dispatch(lo, hi):
-        keep = []  # the uploads' pinned sources, held until the batch is finished
         with profiling.span("schedule.stage"):
-            if seg >= lz77.HIST:
-                payload, head, n_valid, hist_len, _ = _build_batch_payload(
-                    arr, lo, hi, seg, dict_hist)
-                d_data = _assemble_batch_device(transfer.upload(payload, dev, keep),
-                                                transfer.upload(head, dev, keep))
-            else:
-                data, n_valid, hist_len, _ = _build_batch(arr, lo, hi, seg, dict_hist)
-                d_data = transfer.upload(data, dev, keep)
-            d_nv = transfer.upload(n_valid, dev, keep)
-            d_hl = transfer.upload(hist_len, dev, keep)
-            res = lz77.analyze2_start(d_data, d_nv, d_hl, level=level, seg_len=seg,
-                                      window_bits=window_bits)
-        return lo, hi, n_valid, d_data, d_nv, d_hl, res, keep
+            rows = batch_rows(*_segments(arr, lo, hi, seg, dict_hist), seg)
+            return Batch(rows, dev, first=lo).start(level, window_bits)
 
     inflight = collections.deque(dispatch(*bt) for bt in batches[:PIPELINE_DEPTH])
     ahead = iter(batches[len(inflight):])
     for _ in batches:
-        lo, hi, n_valid, d_data, d_nv, d_hl, res, _keep = inflight.popleft()
+        batch = inflight.popleft()
         nxt = next(ahead, None)
         if nxt is not None:
             inflight.append(dispatch(*nxt))
-        res = lz77.analyze2_finish(res, d_data, d_nv, d_hl, level=level,
-                                   seg_len=seg, window_bits=window_bits)
-        final_flags = np.arange(lo, hi) == nseg - 1
-        _finish_batch(w, arr, lo, final_flags, seg, n_valid, d_data, res,
-                      force_block)
-
-
-def _finish_batch(w, arr, seg_lo, final_flags, seg, n_valid, d_data, res,
-                  force_block=None):
-    """Host half of one batch of ``len(final_flags)`` segments, the first
-    at ``arr[seg_lo * seg:]``: block planning, device pack, assembly.
-    The host reads (histograms, then the pack's totals and every word
-    column) go through events (``ops/transfer``)."""
-    b = len(final_flags)
-    b_pad = d_data.shape[0]
-    hist_lit, hist_dist = transfer.read(res, "hist_lit", "hist_dist")
-    (hdr_vals, hdr_bits), tabs, kinds = plan_blocks(
-        hist_lit[:b], hist_dist[:b], n_valid[:b], final_flags, pad_to=b_pad,
-        force_block=force_block)
-    # any packed (non-stored) block beat the stored cost, so < ~9 bits/byte
-    out_words = (9 * seg) // 32 + 2 * _HDR_PAD
-    words, totals = pack_segments(res, d_data[:, lz77.HIST:], hdr_vals,
-                                  hdr_bits, *tabs, out_words=out_words)
-    # all columns: the copy need not wait for the totals to reach the host
-    totals, words = transfer.Fetch({"totals": totals, "words": words}).wait(
-        "totals", "words")
-    with profiling.span("schedule.assemble"):
-        # keep only the words used by non-stored segments
-        used = [int(totals[i]) for i in range(b) if kinds[i] != "stored"]
-        cap = (max(used) + 31) // 32 + 1 if used else 0
-        words = words[:, :cap].astype("<u4")
-        for i in range(b):
-            if kinds[i] == "stored":
-                start = (seg_lo + i) * seg
-                _emit_stored(w, arr[start: start + int(n_valid[i])],
-                             final=bool(final_flags[i]))
-            else:
-                w.write_packed(words[i].view(np.uint8), int(totals[i]))
+        last = np.arange(batch.first, batch.first + batch.rows.b) == nseg - 1
+        batch.finish().pack(last, force_block=force_block)
+        with profiling.span("schedule.assemble"):
+            write_parts(w, drain([batch]))
 
 
 def pack_segments(res, sym_lit, hdr_vals, hdr_bits, lit_codes, lit_bits,
@@ -1007,37 +1020,6 @@ def _encode_one_block(w: bitstream.BitWriter, cmds: list[int],
     w.write(int(lc[EOB]), int(ll[EOB]))
 
 
-def _history_rows(chunks, hists, seg: int):
-    """One row per chunk, each behind the last HIST bytes of its own
-    history, padded to ``_batch_rows`` rows (the reference pads to
-    MAX_DEVICE_BATCH; rows are analysed independently, so only the work
-    differs).  Returns (data uint8[b_pad, HIST + seg], n_valid, hist_len)."""
-    b_pad = _batch_rows(len(chunks))
-    data = np.zeros((b_pad, lz77.HIST + seg), dtype=np.uint8)
-    n_valid = np.zeros(b_pad, dtype=np.int32)
-    hist_len = np.zeros(b_pad, dtype=np.int32)
-    for i, (c, h) in enumerate(zip(chunks, hists)):
-        c, h = _np_u8(c), _np_u8(h)
-        if c.size > seg:
-            raise ValueError("chunk larger than segment")
-        hl = min(h.size, lz77.HIST)
-        if hl:
-            data[i, lz77.HIST - hl: lz77.HIST] = h[h.size - hl:]
-        data[i, lz77.HIST: lz77.HIST + c.size] = c
-        n_valid[i] = c.size
-        hist_len[i] = hl
-    return data, n_valid, hist_len
-
-
-def _analyze_rows(data, n_valid, hist_len, level: int, seg: int, dev):
-    """The rows on ``dev`` and their full analysis (``lz77.analyze2``)."""
-    d_data = torch.from_numpy(data).to(dev)
-    res = lz77.analyze2(d_data, torch.from_numpy(n_valid).to(dev),
-                        torch.from_numpy(hist_len).to(dev), level=level,
-                        seg_len=seg)
-    return d_data, res
-
-
 def match_commands(chunk: bytes, hist: bytes = b"", level: int = 6,
                    seg: int | None = None, *, device="cuda") -> np.ndarray:
     """Match-find one chunk (with history) into packed commands
@@ -1059,20 +1041,18 @@ def match_commands_batch(chunks: list[bytes], hists: list[bytes],
         seg = 16384
         while seg < max(len(c) for c in chunks):
             seg *= 2
-    data, n_valid, hist_len = _history_rows(chunks, hists, seg)
-    _, res = _analyze_rows(data, n_valid, hist_len, level, seg, dev)
-    on_path = res["on_path"].cpu().numpy()
-    is_match = res["is_match"].cpu().numpy()
-    length = res["length"].cpu().numpy()
-    dist = res["dist"].cpu().numpy()
+    rows = batch_rows(chunks, hists, seg)
+    batch = Batch(rows, dev).start(level).finish()
+    on_path, is_match, length, dist = transfer.read(batch.res, "on_path", "is_match",
+                                                    "length", "dist")
     out = []
     for i in range(b):
-        n = int(n_valid[i])
+        n = int(rows.n_valid[i])
         pos = np.flatnonzero(on_path[i, :n])
         im = is_match[i, pos].astype(bool)
         ln64 = length[i, pos].astype(np.int64)
         d64 = dist[i, pos].astype(np.int64)
-        lits = data[i, lz77.HIST + pos].astype(np.int64)
+        lits = rows.payload(i)[pos].astype(np.int64)
         out.append(np.where(
             im, ((ln64 - MIN_MATCH) << 16) | (d64 - 1) | _CMD_COPY_FLAG, lits))
     return out
@@ -1085,7 +1065,7 @@ def deflate_segment_into(w: bitstream.BitWriter, chunk: bytes, hist: bytes,
     ``hist``), appending its blocks to the open writer ``w``: the
     streaming encoder's backend, one device analysis per segment."""
     dev = _resolve_device(device)
-    data, n_valid, hist_len = _history_rows([chunk], [hist], seg)
-    d_data, res = _analyze_rows(data, n_valid, hist_len, level, seg, dev)
-    _finish_batch(w, _np_u8(chunk), 0, np.array([final]), seg, n_valid,
-                  d_data, res)
+    batch = Batch(batch_rows([chunk], [hist], seg), dev).start(level).finish()
+    batch.pack(np.array([final]))
+    with profiling.span("schedule.assemble"):
+        write_parts(w, drain([batch]))

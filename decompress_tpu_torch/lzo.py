@@ -21,6 +21,7 @@ import torch
 
 from . import de, native
 from .ops import lz77 as lz77_ops
+from .ops import transfer
 
 
 class LzoError(ValueError):
@@ -324,41 +325,23 @@ def compress(data, wrkmem: WrkMem | None = None, *, level: int = 6,
 
 
 def _analyze(arr: np.ndarray, level: int, dev: torch.device):
-    """Match finding for LZO on ``dev``: ``lz77.analyze`` of batches of up
-    to MAX_DEVICE_BATCH segments of SEGMENT_SIZE bytes, each behind its
-    32 KiB of history (matches of length >= 3, distance <= 32768); each
-    result field comes to the host once a batch."""
+    """Match finding for LZO on ``dev``: ``lz77.analyze`` (round A made
+    exact, no round B) of batches of up to MAX_DEVICE_BATCH segments of
+    SEGMENT_SIZE bytes, each behind its 32 KiB of history (matches of
+    length >= 3, distance <= 32768), staged as the compressor stages them
+    (``de.batch_rows``, ``de.Batch``); the four result fields come to the
+    host through one Fetch a batch."""
     n = arr.size
     seg = de.SEGMENT_SIZE
-    hist = lz77_ops.HIST
     nseg = (n + seg - 1) // seg
-    on_path = np.zeros(n, bool)
-    is_match = np.zeros(n, bool)
-    length = np.zeros(n, np.int32)
-    dist = np.zeros(n, np.int32)
-    fields = (("on_path", on_path), ("is_match", is_match), ("length", length),
-              ("dist", dist))
-    for lo_seg in range(0, nseg, de.MAX_DEVICE_BATCH):
-        hi_seg = min(lo_seg + de.MAX_DEVICE_BATCH, nseg)
-        b_pad = de._batch_rows(hi_seg - lo_seg)
-        data = np.zeros((b_pad, hist + seg), dtype=np.uint8)
-        n_valid = np.zeros(b_pad, dtype=np.int32)
-        hist_len = np.zeros(b_pad, dtype=np.int32)
-        for i, s in enumerate(range(lo_seg, hi_seg)):
-            start = s * seg
-            stop = min(start + seg, n)
-            n_valid[i] = stop - start
-            hl = min(hist, start)
-            hist_len[i] = hl
-            data[i, hist - hl : hist] = arr[start - hl : start]
-            data[i, hist : hist + stop - start] = arr[start:stop]
-        res = lz77_ops.analyze(
-            torch.from_numpy(data).to(dev), torch.from_numpy(n_valid).to(dev),
-            torch.from_numpy(hist_len).to(dev), level=level, seg_len=seg)
-        for key, dst in fields:
-            got = res[key].cpu().numpy()
-            for i, s in enumerate(range(lo_seg, hi_seg)):
-                start = s * seg
-                m = int(n_valid[i])
-                dst[start : start + m] = got[i, :m]
-    return on_path, is_match, length, dist
+    keys = ("on_path", "is_match", "length", "dist")
+    out = [np.zeros(n, bool), np.zeros(n, bool), np.zeros(n, np.int32), np.zeros(n, np.int32)]
+    for lo in range(0, nseg, de.MAX_DEVICE_BATCH):
+        hi = min(lo + de.MAX_DEVICE_BATCH, nseg)
+        batch = de.Batch(de.batch_rows(*de._segments(arr, lo, hi, seg), seg), dev)
+        res = lz77_ops.analyze(batch.data, batch.n_valid, batch.hist_len, level=level,
+                               seg_len=seg)
+        start, stop = lo * seg, min(hi * seg, n)
+        for dst, got in zip(out, transfer.read(res, *keys)):
+            dst[start:stop] = got[:hi - lo].reshape(-1)[:stop - start]
+    return tuple(out)

@@ -7,10 +7,9 @@ tables, :func:`cost_tables`).
 ``decompress_tpu/native/tpuz.cpp`` (``tests/test_torch_native.py``
 holds the two equal); this module is the port of its ``ctypes``
 wrapper.  ``plan.cpp`` is the port's own: the native form of
-``de.plan_blocks``, held byte for byte to the Python planner
-(``de._plan_blocks_plain``) by ``tests/test_torch_plan.py``, and of
-``lz77._cost_tables_host``, held to its Python body
-(``lz77._cost_tables_plain``) by ``tests/test_torch_cost.py``.  Each
+``de.plan_blocks``, held byte for byte to the reference's planner by
+``tests/test_torch_plan.py``, and of ``lz77._cost_tables_host``, held to
+the reference's tables by ``tests/test_torch_cost.py``.  Each
 source builds with ``g++`` at first use into
 ``build/native/<hash of source and flags>/lib<stem>.so`` beside the
 package.  The build is atomic across processes: one process compiles

@@ -1,12 +1,12 @@
 // plan: host block planning of one batch of DEFLATE blocks in one call,
 // and round B's bit-cost tables of one batch in another.
 //
-// The native form of ``de.plan_blocks`` (whose Python body stays as
-// ``de._plan_blocks_plain``): for each row of a batch it builds the
-// length-limited Huffman trees of the row's histograms, serializes the
-// dynamic header, prices the stored, fixed and dynamic encodings exactly,
-// chooses one and writes the header pairs and the bit-reversed canonical
-// code tables the device packer reads.  Every step follows the Python
+// The native form of ``de.plan_blocks`` (its model: the reference's
+// Python planner): for each row of a batch it builds the length-limited
+// Huffman trees of the row's histograms, serializes the dynamic header,
+// prices the stored, fixed and dynamic encodings exactly, chooses one and
+// writes the header pairs and the bit-reversed canonical code tables the
+// device packer reads.  Every step follows the Python
 // planner's order of operations, so the output is byte for byte the
 // same:
 //   * tree build: a heap keyed (freq, symbol) for leaves and
@@ -20,7 +20,7 @@
 //     limit of 7 bits.
 //
 // The same ``code_lengths`` gives ``lz77._cost_tables_host`` its tables
-// (whose Python body stays as ``lz77._cost_tables_plain``): the two code
+// (the reference's Python tables are its model): the two code
 // lengths of each row, 13 bits for every symbol the row never used.
 //
 // Build: g++ -O3 -shared -fPIC plan.cpp -o libplan.so

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..core import huffman, tables
+from ..core import tables
 from ..utils import profiling
 
 from . import cost_cu, graphs, hist_cu, parse_cu, probe_cu, transfer
@@ -464,27 +464,10 @@ def _cost_tables_host(hist_lit, hist_dist):
     so round B may still introduce them when clearly profitable.
 
     One native call tables the batch (``native/plan.cpp``); its output
-    is :func:`_cost_tables_plain`'s exactly.
+    is the reference's ``_cost_tables_host``' exactly.
     """
     lit_cost, dist_cost, overflow = native.cost_tables(hist_lit, hist_dist)
     TABLE_COUNTS.update(rows=lit_cost.shape[0], overflow=overflow)
-    return lit_cost, dist_cost
-
-
-def _cost_tables_plain(hist_lit, hist_dist):
-    """The plain model of :func:`_cost_tables_host`: the reference's
-    tables, a Python loop of two trees a row.  The tests hold the native
-    tables to it."""
-    b = hist_lit.shape[0]
-    lit_cost = np.full((b, 286), 13.0, np.float32)
-    dist_cost = np.full((b, 30), 13.0, np.float32)
-    for i in range(b):
-        hl = hist_lit[i].astype(np.int64)
-        hl[tables.EOB] += 1
-        ll = huffman.code_lengths_from_frequencies(hl)
-        dl = huffman.code_lengths_from_frequencies(hist_dist[i].astype(np.int64))
-        lit_cost[i, : ll.size] = np.where(ll > 0, ll, 13.0)
-        dist_cost[i, : dl.size] = np.where(dl > 0, dl, 13.0)
     return lit_cost, dist_cost
 
 
@@ -608,17 +591,6 @@ def analyze2_start(data, n_valid, hist_len, *, level: int, seg_len: int,
     queued right behind it, so that finish waits for this batch only."""
     return _queued(lz77_analyze(data, n_valid, hist_len, level=level, seg_len=seg_len,
                                 window_bits=window_bits, hist=hist))
-
-
-def analyze2(data, n_valid, hist_len, *, level: int, seg_len: int,
-             window_bits: int = 15, hist: int = HIST) -> dict[str, torch.Tensor]:
-    """The full analysis of a level: round A (:func:`analyze2_start`), then
-    :func:`analyze2_finish` (the repairs and, at the two-round levels,
-    round B); the result is byte-exact."""
-    res = analyze2_start(data, n_valid, hist_len, level=level, seg_len=seg_len,
-                         window_bits=window_bits, hist=hist)
-    return analyze2_finish(res, data, n_valid, hist_len, level=level,
-                           seg_len=seg_len, window_bits=window_bits, hist=hist)
 
 
 def state_from_numpy(res: dict, device) -> dict[str, torch.Tensor]:

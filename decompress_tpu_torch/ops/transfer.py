@@ -1,6 +1,6 @@
 """Event-ordered transfers between the host and a device, for the
-dispatch-ahead schedules (``de._deflate_pipelined`` and the sharded
-writer's windowed chunks).
+compressors' batch path (``de.Batch``) and its dispatch-ahead schedules
+(``de._deflate_pipelined`` and the sharded writer's windowed chunks).
 
 On a CUDA device a blocking copy (``.to("cuda")`` of pageable memory,
 ``.cpu()``, ``bool()`` or ``int()`` of a device tensor) waits for every

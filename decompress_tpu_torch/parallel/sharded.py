@@ -131,19 +131,6 @@ def _mesh_devices(mesh, device) -> tuple:
     return devs
 
 
-def _batched_members(arr: np.ndarray, member_size: int, hist: int):
-    n = arr.size
-    m = max(1, (n + member_size - 1) // member_size)
-    data = np.zeros((m, hist + member_size), dtype=np.uint8)
-    n_valid = np.zeros(m, dtype=np.int32)
-    for i in range(m):
-        lo = i * member_size
-        hi = min(lo + member_size, n)
-        n_valid[i] = hi - lo
-        data[i, hist : hist + hi - lo] = arr[lo:hi]
-    return data, n_valid
-
-
 def _shard_rows(lo: int, m: int, d: int) -> list:
     """The chunk of members from ``lo`` split over a mesh of ``d``
     devices, as the reference's ``_shard_batch`` splits it: the chunk is
@@ -164,125 +151,69 @@ def _compress_members(arr, level, member_size, mesh, final_flags=None,
                       want_crc=True, shared_tree=False):
     """Member compression over ``mesh`` (a tuple of devices), in chunks of
     MAX_DEVICE_BATCH members per mesh device split as :func:`_shard_rows`
-    splits them; member i is a final block where ``final_flags[i]``
-    (default: every member).
+    splits them, each device group one ``de.Batch`` of history-free rows;
+    member i is a final block where ``final_flags[i]`` (default: every
+    member).
 
-    Returns (parts, n_valid, crcs) where parts[i] is either ("stored",
-    payload_u8) or ("packed", packed_u8, total_bits, splits, ncmds),
-    splits being the N_SPLITS-1 (bit_off, cmd_idx, out_off) triples
-    (bit_off 0 = none), and crcs the members' CRC-32s computed on their
-    devices (None without ``want_crc``), all by member index.
+    Returns (parts, n_valid): parts[i] is member i's ``de.Part``, packed
+    ones with their N_SPLITS-1 split points (bit_off 0 = none), and with
+    ``want_crc`` every one with its CRC-32 computed on its device.
 
     Chunks run in the reference's windowed order: chunk i's round A is
     dispatched on every device group, then chunk i-1's packs are drained
-    (:func:`_drain`) while the devices work on i, then chunk i is
-    finished (repairs, round B) and its packs dispatched, each with its
-    members' CRC-32 and the copies of what the drain reads queued behind
-    it.  At most two chunks' device buffers are live.  ``shared_tree``
-    analyzes every chunk first, sums the histograms, builds one dynamic
-    tree and packs every member with it."""
+    (``de.drain``) while the devices work on i, then chunk i is finished
+    (repairs, round B) and its packs dispatched, each with its members'
+    CRC-32 and the copies of what the drain reads queued behind it.  At
+    most two chunks' device buffers are live.  ``shared_tree`` analyzes
+    every chunk first, sums the histograms, builds one dynamic tree and
+    packs every member with it."""
     devs = tuple(mesh)
-    # members are independent (window reset at boundaries), so they run
-    # with no history prefix
-    hist = 0
-    with profiling.span("schedule.stage"):
-        data, n_valid = _batched_members(arr, member_size, hist)
-    m = data.shape[0]
+    m = max(1, (arr.size + member_size - 1) // member_size)
+    n_valid = np.minimum(arr.size - np.arange(m) * member_size, member_size).astype(np.int32)
     if final_flags is None:
         final_flags = np.ones(m, bool)
     chunk = de.MAX_DEVICE_BATCH * len(devs)
-    out_words = (9 * member_size) // 32 + 2 * de._HDR_PAD
+    parts: list = []
 
     @profiling.spanned("schedule.stage")
     def start(k, glo, b, rows):
-        dev = devs[k]
-        cdata = np.zeros((rows, data.shape[1]), dtype=np.uint8)
-        cdata[:b] = data[glo:glo + b]
-        cnv = np.zeros(rows, np.int32)
-        cnv[:b] = n_valid[glo:glo + b]
-        keep = []  # the uploads' pinned sources, held until the group is packed
-        d_data = transfer.upload(cdata, dev, keep)
-        d_nv = transfer.upload(cnv, dev, keep)
-        d_hl = torch.zeros(rows, dtype=torch.int32, device=dev)
-        res0 = lz77.analyze2_start(d_data, d_nv, d_hl, level=level,
-                                   seg_len=member_size, hist=hist)
-        return glo, b, rows, cdata, cnv, d_data, d_nv, d_hl, res0, keep
+        # members are independent (window reset at boundaries), so they run
+        # with no history prefix
+        members = [arr[i * member_size:(i + 1) * member_size] for i in range(glo, glo + b)]
+        return de.Batch(de.batch_rows(members, None, member_size, rows=rows), devs[k],
+                        first=glo).start(level)
 
     def analyze(lo):  # round A of every device group of the chunk at lo
         return [start(*g) for g in _shard_rows(lo, m, len(devs))]
 
-    def finish(pend):
-        glo, b, rows, cdata, cnv, d_data, d_nv, d_hl, res0, keep = pend
-        res = lz77.analyze2_finish(res0, d_data, d_nv, d_hl, level=level,
-                                   seg_len=member_size, hist=hist)
-        hist_lit, hist_dist = transfer.read(res, "hist_lit", "hist_dist")
-        return glo, b, rows, cdata, cnv, d_data, d_nv, res, hist_lit[:b], hist_dist[:b], keep
+    def pack(batch, shared=False):
+        return batch.pack(final_flags[batch.first:batch.first + batch.rows.b],
+                          shared_tree=shared, n_splits=N_SPLITS,
+                          split_stride=SPLIT_STRIDE, split_bits=SPLIT_BITS, crc=want_crc)
 
-    def pack(st, shared):
-        glo, b, rows, cdata, cnv, d_data, d_nv, res, hist_lit, hist_dist, keep = st
-        (hdr_vals, hdr_bits), tabs, kinds = de.plan_blocks(
-            hist_lit, hist_dist, cnv[:b], final_flags[glo:glo + b], pad_to=rows,
-            shared_tree=shared or False)
-        (words, totals), (sp_bits, sp_cmds, sp_outs, sp_n) = de.pack_segments(
-            res, d_data[:, hist:], hdr_vals, hdr_bits, *tabs,
-            out_words=out_words, n_splits=N_SPLITS, split_stride=SPLIT_STRIDE,
-            split_bits=SPLIT_BITS)
-        outs = {"totals": totals, "words": words, "sp_bits": sp_bits,
-                "sp_cmds": sp_cmds, "sp_outs": sp_outs, "sp_n": sp_n}
-        if want_crc:
-            outs["crcs"] = checksum.crc32_rows_device(d_data[:, hist:], d_nv)
-        return b, cdata, cnv, kinds, transfer.Fetch(outs), keep
+    def drain(batches):  # device groups come in member order
+        with profiling.span("schedule.assemble"):
+            parts.extend(de.drain(batches))
 
-    parts: list = []
-    crcs: list = []
     if shared_tree:
-        staged = [finish(p) for lo in range(0, m, chunk) for p in analyze(lo)]
-        hl_sum = np.zeros(de.NUM_LIT_SYMS, np.int64)
-        hd_sum = np.zeros(de.NUM_DIST_SYMS, np.int64)
-        for *_, hist_lit, hist_dist, _keep in staged:
-            hl_sum[: hist_lit.shape[1]] += hist_lit.astype(np.int64).sum(axis=0)
-            hd_sum[: hist_dist.shape[1]] += hist_dist.astype(np.int64).sum(axis=0)
+        staged = [p.finish() for lo in range(0, m, chunk) for p in analyze(lo)]
+        hl_sum = sum(batch.hist_lit.astype(np.int64).sum(axis=0) for batch in staged)
+        hd_sum = sum(batch.hist_dist.astype(np.int64).sum(axis=0) for batch in staged)
         hl_sum[de.EOB] += m  # one EOB per member block
         s_lit = huffman.code_lengths_from_frequencies(hl_sum)
         s_dist = huffman.code_lengths_from_frequencies(hd_sum)
         shared = (s_lit, s_dist, de.build_dynamic_header(s_lit, s_dist))
-        for st in staged:
-            _drain([pack(st, shared)], hist, parts, crcs if want_crc else None)
+        for batch in staged:
+            drain([pack(batch, shared)])
     else:
         packed = None
         for lo in range(0, m, chunk):
             pend = analyze(lo)
             if packed is not None:  # chunk i-1, while the devices analyze chunk i
-                _drain(packed, hist, parts, crcs if want_crc else None)
-            packed = [pack(st, None) for st in [finish(p) for p in pend]]
-        _drain(packed, hist, parts, crcs if want_crc else None)
-    return parts, n_valid, (np.array(crcs) if want_crc else None)
-
-
-@profiling.spanned("schedule.assemble")
-def _drain(packed: list, hist: int, parts: list, crcs: list | None) -> None:
-    """Host half of one chunk's packs, in member order (device groups come
-    in member order, so appending gathers by index): wait on each group's
-    event, then append its members to ``parts`` and, where ``crcs`` is a
-    list, their CRC-32s to it."""
-    for b, cdata, cnv, kinds, fetch, _keep in packed:
-        totals, words, sp_bits, sp_cmds, sp_outs, sp_n = (a[:b] for a in fetch.wait(
-            "totals", "words", "sp_bits", "sp_cmds", "sp_outs", "sp_n"))
-        if crcs is not None:
-            crcs.extend(fetch.wait("crcs")[0][:b].astype(np.uint32))
-        used = [int(totals[i]) for i in range(b) if kinds[i] != "stored"]
-        cap = (max(used) + 31) // 32 + 1 if used else 0
-        words = words[:, :cap].astype("<u4")
-        for i in range(b):
-            if kinds[i] == "stored":
-                parts.append(("stored", cdata[i, hist : hist + cnv[i]]))
-            else:
-                splits = [
-                    (int(sp_bits[i, j]), int(sp_cmds[i, j]), int(sp_outs[i, j]))
-                    for j in range(N_SPLITS - 1)
-                ]
-                parts.append(("packed", words[i].view(np.uint8), int(totals[i]),
-                              splits, int(sp_n[i])))
+                drain(packed)
+            packed = [pack(batch) for batch in [p.finish() for p in pend]]
+        drain(packed)
+    return parts, n_valid
 
 
 def _encode_tb(split_rows: list, ncmds: list, stride: int) -> bytes | None:
@@ -342,34 +273,29 @@ def sharded_gzip_compress(data, level: int = 6, *, member_size: int = de.SEGMENT
             empty = gz.compress(b"", level, device=devs[0])
             return (empty, [len(empty)], [[(0, 0, 0)] * (N_SPLITS - 1)], [0]) \
                 if return_meta else empty
-        parts, n_valid, crcs = _compress_members(arr, level, member_size, devs,
-                                                 shared_tree=shared_tree)
-        return _assemble(parts, n_valid, crcs, level, mtime, os, index, return_meta)
+        parts, n_valid = _compress_members(arr, level, member_size, devs,
+                                           shared_tree=shared_tree)
+        return _assemble(parts, n_valid, level, mtime, os, index, return_meta)
 
 
 @profiling.spanned("schedule.assemble")
-def _assemble(parts, n_valid, crcs, level, mtime, os, index, return_meta):
+def _assemble(parts, n_valid, level, mtime, os, index, return_meta):
     """The archive, or with ``return_meta`` the tuple
-    :func:`sharded_gzip_compress` returns, from the members' parts, sizes
-    and CRC-32s (:func:`_compress_members`)."""
+    :func:`sharded_gzip_compress` returns, from the members' parts (with
+    their CRC-32s) and sizes (:func:`_compress_members`)."""
     m = len(parts)
     head = b"\x1f\x8b\x08\x00" + (mtime & 0xFFFFFFFF).to_bytes(4, "little") \
         + bytes([gz._xfl(level), int(os)])
     bodies = []
     for part in parts:
         w = bitstream.BitWriter()
-        if part[0] == "stored":
-            de._emit_stored(w, part[1], final=True)
-        else:
-            w.write_packed(part[1], part[2])
+        de.write_parts(w, [part])
         bodies.append(w.getvalue())
 
     sizes = [len(head) + len(b) + 8 for b in bodies]
-    split_rows = [
-        part[3] if part[0] == "packed" else [(0, 0, 0)] * (N_SPLITS - 1)
-        for part in parts
-    ]
-    ncmds = [part[4] if part[0] == "packed" else 0 for part in parts]
+    split_rows = [[(0, 0, 0)] * (N_SPLITS - 1) if part.splits is None else part.splits
+                  for part in parts]
+    ncmds = [part.ncmds for part in parts]
     xt = _build_index(m, sizes, split_rows, ncmds) if index else None
     if xt is not None:
         head0 = bytearray(head)
@@ -381,7 +307,7 @@ def _assemble(parts, n_valid, crcs, level, mtime, os, index, return_meta):
     for i in range(m):  # order-preserving: by member index
         out.append(heads[i])
         out.append(bodies[i])
-        out.append(int(crcs[i]).to_bytes(4, "little"))
+        out.append(parts[i].crc.to_bytes(4, "little"))
         out.append(int(int(n_valid[i]) & 0xFFFFFFFF).to_bytes(4, "little"))
     archive = b"".join(out)
     if return_meta:
@@ -405,24 +331,14 @@ def sharded_zlib_compress(data, level: int = 6, *, member_size: int = de.SEGMENT
     m = max(1, (arr.size + member_size - 1) // member_size)
     final_flags = np.zeros(m, bool)
     final_flags[-1] = True
-    parts, _, _ = _compress_members(arr, level, member_size, devs,
-                                    final_flags=final_flags, want_crc=False)
+    parts, _ = _compress_members(arr, level, member_size, devs,
+                                 final_flags=final_flags, want_crc=False)
     # members tile the input in order, so the stream's Adler-32 is that
     # of the whole input
     adler = checksum.adler32(arr, device=devs[0])
     w = bitstream.BitWriter()
     w.write_bytes(zl._header(level))
-    for i, part in enumerate(parts):
-        final = i == m - 1
-        if part[0] == "stored":
-            de._emit_stored(w, part[1], final=final)
-        else:
-            w.write_packed(part[1], part[2])
-            if not final:
-                w.write(0, 3)  # sync flush: an empty stored block
-                w.align_to_byte()
-                w.write(0, 16)
-                w.write(0xFFFF, 16)
+    de.write_parts(w, parts, sync=True)
     return w.getvalue() + adler.to_bytes(4, "big")
 
 

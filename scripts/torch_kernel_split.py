@@ -178,11 +178,8 @@ def main() -> int:
     data = (base * -(-size // len(base)))[:size]
     arr = de._np_u8(data)
     seg = de.SEGMENT_SIZE
-    payload, head, n_valid, hist_len, _ = de._build_batch_payload(
-        arr, 0, de.MAX_DEVICE_BATCH, seg)
-    d_data = de._assemble_batch_device(torch.from_numpy(payload).to(dev),
-                                       torch.from_numpy(head).to(dev))
-    nv, hl = torch.from_numpy(n_valid).to(dev), torch.from_numpy(hist_len).to(dev)
+    staged = de.Batch(de.batch_rows(*de._segments(arr, 0, de.MAX_DEVICE_BATCH, seg), seg), dev)
+    d_data, nv, hl = staged.data, staged.n_valid, staged.hist_len
 
     res = lz77.lz77_analyze(d_data, nv, hl, level=4, seg_len=seg)
     take, ln = lz77._take_defer(res["cand_length"], nv, seg, lz77.LEVELS[4].lazy)

@@ -1,21 +1,21 @@
 #!/usr/bin/env python3
 """The compressors' two native host stages on the card machine's host:
-each batch's time, native against the plain Python model, and the
-stage's counter.
+each batch's time and the stage's counter.
 
     python3 scripts/torch_plan_split.py [RUNS] [STAGE ...]
 
-STAGE is ``plan`` (``de.plan_blocks`` against ``de._plan_blocks_plain``,
-counter ``de.PLAN_COUNTS``) or ``tables`` (``lz77._cost_tables_host``
-against ``lz77._cost_tables_plain``, counter ``lz77.TABLE_COUNTS``);
+STAGE is ``plan`` (``de.plan_blocks``, counter ``de.PLAN_COUNTS``) or
+``tables`` (``lz77._cost_tables_host``, counter ``lz77.TABLE_COUNTS``);
 both by default.  On the benchmark's inputs (``benchmark/inputs.py``,
 seed 1: the Calgary corpus cut to 8 MiB for the one-shot and to 16 MiB
 for the archive), one warm call of ``gz.compress(x, 6)`` and one of
 ``sharded_gzip_compress(x, 6)`` on the card record every call of the
 stage's arguments and the growth of its counter.  Then RUNS (default 20)
-rounds run each recorded batch through both versions in turns, on
-``time.perf_counter``, and check the two equal.  Prints the card's name
-and power limit and one JSON line last.  Exits 2 without CUDA.
+rounds run each recorded batch through the stage again, on
+``time.perf_counter``, and check every result equal to the first.
+(The stages' Python models are the reference's, which the CPU tests hold
+them to.)  Prints the card's name and power limit and one JSON line
+last.  Exits 2 without CUDA.
 """
 
 from __future__ import annotations
@@ -31,15 +31,13 @@ HERE = pathlib.Path(__file__).resolve().parent.parent
 
 
 def _stages():
-    """stage -> (module, native name, plain name, counter, counter keys)"""
+    """stage -> (module, function name, counter, counter keys)"""
     from decompress_tpu_torch import de
     from decompress_tpu_torch.ops import lz77
 
     return {
-        "plan": (de, "plan_blocks", "_plan_blocks_plain", de.PLAN_COUNTS,
-                 ("stored", "fixed", "dynamic", "overflow")),
-        "tables": (lz77, "_cost_tables_host", "_cost_tables_plain", lz77.TABLE_COUNTS,
-                   ("rows", "overflow")),
+        "plan": (de, "plan_blocks", de.PLAN_COUNTS, ("stored", "fixed", "dynamic", "overflow")),
+        "tables": (lz77, "_cost_tables_host", lz77.TABLE_COUNTS, ("rows", "overflow")),
     }
 
 
@@ -100,33 +98,29 @@ def main() -> int:
     out = {"card": card, "runs": runs}
     ok = True
     for stage in chosen:
-        mod, name, plain_name, counter, keys = stages[stage]
+        mod, name, counter, keys = stages[stage]
         for path, (fn, n_bytes) in paths.items():
             fn()  # warm: builds, captures
             torch.cuda.synchronize()
             calls, counts = _record(mod, name, counter, keys, fn)
             torch.cuda.synchronize()
             mb = n_bytes / 1e6
-            times = {"native": [], "plain": []}
-            results = {}
-            for r in range(runs):
-                order = ("native", "plain") if r % 2 == 0 else ("plain", "native")
-                for which in order:
-                    f = getattr(mod, name if which == "native" else plain_name)
-                    t0 = time.perf_counter()
-                    res = [f(*a, **kw) for a, kw in calls]
-                    times[which].append(time.perf_counter() - t0)
-                    results.setdefault(which, res)
-            equal = all(_same(a, b) for a, b in zip(results["native"], results["plain"]))
+            f = getattr(mod, name)
+            times, first, equal = [], None, True
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                res = [f(*a, **kw) for a, kw in calls]
+                times.append(time.perf_counter() - t0)
+                first = res if first is None else first
+                equal = equal and all(_same(a, b) for a, b in zip(res, first))
             ok = ok and equal
             row = {"batches": len(calls), "rows": sum(len(a[0]) for a, _ in calls),
                    "MB": mb, "counts": counts, "equal": equal}
-            for which, ts in times.items():
-                med = statistics.median(ts)
-                row[f"{which}_ms_per_batch"] = 1e3 * med / len(calls)
-                row[f"{which}_ms_per_MB"] = 1e3 * med / mb
-                row[f"{which}_ms_per_batch_quartiles"] = [
-                    1e3 * q / len(calls) for q in statistics.quantiles(ts, n=4)]
+            med = statistics.median(times)
+            row["native_ms_per_batch"] = 1e3 * med / len(calls)
+            row["native_ms_per_MB"] = 1e3 * med / mb
+            row["native_ms_per_batch_quartiles"] = [
+                1e3 * q / len(calls) for q in statistics.quantiles(times, n=4)]
             out[f"{stage}.{path}"] = row
             print(stage, path, json.dumps(row), flush=True)
     print(json.dumps(out))

@@ -168,8 +168,7 @@ def main() -> int:
     _build.build()
     dev = torch.device("cuda")
     arr = de._np_u8(chip_smoke.corpus_bytes())
-    *rows, seg = chip_smoke.round_a_rows(arr, "production")
-    batch = [torch.from_numpy(a).to(dev) for a in rows]
+    *batch, seg = chip_smoke.round_a_rows(arr, "production", dev)
 
     def profiled(fn):
         fn()

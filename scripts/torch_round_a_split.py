@@ -109,9 +109,8 @@ def main() -> int:
 
     arr = de._np_u8(data)
     seg = de.SEGMENT_SIZE
-    rows = de._history_rows([arr[i * seg:(i + 1) * seg] for i in range(8)],
-                            [arr[max(0, i * seg - lz77.HIST):i * seg] for i in range(8)], seg)
-    batch = [torch.from_numpy(a).to(dev) for a in rows]
+    staged = de.Batch(de.batch_rows(*de._segments(arr, 0, 8, seg), seg), dev)
+    batch = [staged.data, staged.n_valid, staged.hist_len]
     head = data[:1 << 20]
     fixed = np.zeros((chip_smoke.FIXED_B, lz77.HIST + chip_smoke.FIXED_SEG), np.uint8)
     fixed[:, lz77.HIST:] = arr[:chip_smoke.FIXED_B * chip_smoke.FIXED_SEG].reshape(

@@ -8,9 +8,9 @@ port's int32 ``lz77_parse_cost`` against the reference's (its XLA
 float32 branch on the CPU), array for array, without and with history,
 hot-stride mining and a 1 KiB window; the copied host helpers
 (``_cost_tables_host``, ``_hot_dists_host``) against the reference's.
-The native cost tables (``native/plan.cpp``) equal their Python model
-(``_cost_tables_plain``) and the reference's on drawn batches, whole
-level-6 streams and archives are the same with either, and
+The native cost tables (``native/plan.cpp``) equal the reference's
+Python tables on drawn batches, whole level-6 streams and archives are
+the same with either, and
 ``lz77.TABLE_COUNTS`` counts rows and redistributed trees.  All
 comparisons are exact: the pipeline is integer end to end.
 """
@@ -355,19 +355,18 @@ _DRAWS = {
 
 @pytest.mark.parametrize("dtype", [np.int32, np.int64])
 @pytest.mark.parametrize("kind", sorted(_DRAWS))
-def test_native_cost_tables_equal_plain_and_reference(kind, dtype):
+def test_native_cost_tables_equal_reference(kind, dtype):
     """Forty seeded batches of 1-8 rows a kind and dtype (480 in all):
-    the native tables equal the Python model's and the reference's in
-    dtype, shape and every entry."""
+    the native tables equal the reference's in dtype, shape and every
+    entry."""
     rng = np.random.default_rng([sorted(_DRAWS).index(kind), np.dtype(dtype).itemsize])
     for _ in range(40):
         hl, hd = _DRAWS[kind](rng, int(rng.integers(1, 9)))
         hl, hd = hl.astype(dtype), hd.astype(dtype)
         got = lz77._cost_tables_host(hl, hd)
-        for want in (lz77._cost_tables_plain(hl, hd), ref._cost_tables_host(hl, hd)):
-            for g, w in zip(got, want):
-                assert g.dtype == w.dtype == np.float32 and g.shape == w.shape
-                np.testing.assert_array_equal(g, w)
+        for g, w in zip(got, ref._cost_tables_host(hl, hd)):
+            assert g.dtype == w.dtype == np.float32 and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
 
 
 def test_table_counts_count_rows_and_overflow():
@@ -388,10 +387,10 @@ def test_cost_tables_refuse_other_widths():
         lz77._cost_tables_host(np.zeros((2, 285), np.int32), np.zeros((2, 30), np.int32))
 
 
-def test_whole_streams_equal_with_the_plain_tables(monkeypatch):
+def test_whole_streams_equal_with_the_reference_tables(monkeypatch):
     """A 36,000-byte Calgary prefix at level 6 in 4 KiB segments (two
     batches): the gzip stream and the indexed archive are the same bytes
-    with the native tables as with the Python ones."""
+    with the native tables as with the reference's."""
     x = (CORPUS / "paper1").read_bytes()[:36_000]
 
     def both():
@@ -401,7 +400,7 @@ def test_whole_streams_equal_with_the_plain_tables(monkeypatch):
     before = collections.Counter(lz77.TABLE_COUNTS)
     native = both()
     assert (lz77.TABLE_COUNTS - before)["rows"] >= 18
-    monkeypatch.setattr(lz77, "_cost_tables_host", lz77._cost_tables_plain)
+    monkeypatch.setattr(lz77, "_cost_tables_host", ref._cost_tables_host)
     assert native == both()
     assert gzip.decompress(native[0]) == x
     assert gzip.decompress(native[1]) == x

@@ -144,7 +144,10 @@ def trim_loop(monkeypatch):
 def test_payload_groups_differ():
     """The noise pair has no hot strides, the records row has, and no
     device group at mesh size 8 holds both the trim segment and it."""
-    data, nv = sharded._batched_members(np.frombuffer(PAYLOAD, np.uint8), MEMBER, 0)
+    arr = np.frombuffer(PAYLOAD, np.uint8)
+    rows = de.batch_rows([arr[i * MEMBER:(i + 1) * MEMBER] for i in range(12)], None, MEMBER,
+                         rows=12)
+    data, nv = rows.data, rows.n_valid
     assert len(nv) == 12 and data[9].tobytes() == TRIM
     res = lz77.analyze2_start(torch.from_numpy(data), torch.from_numpy(nv),
                               torch.zeros(12, dtype=torch.int32), level=6,

@@ -47,12 +47,12 @@ def _assert_same(got, want):
 
 def _batch(hist):
     """3 segments of paper1 (the last short): with hist=HIST, as
-    ``de._build_batch`` builds them (history from the previous segment)."""
+    ``de.batch_rows`` builds them (history from the previous segment)."""
     raw = np.frombuffer((CORPUS / "paper1").read_bytes(), np.uint8)
     if hist:
         arr = raw[: 5 * SEG - 500]
-        data, n_valid, hist_len, _ = de._build_batch(arr, 2, 5, SEG)
-        return data[:3], n_valid[:3], hist_len[:3]
+        rows = de.batch_rows(*de._segments(arr, 2, 5, SEG), SEG)
+        return rows.data[:3], rows.n_valid[:3], rows.hist_len[:3]
     data = raw[: 3 * SEG].reshape(3, SEG).copy()
     return data, np.array([SEG, SEG, SEG - 500], np.int32), np.zeros(3, np.int32)
 

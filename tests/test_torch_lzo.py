@@ -9,6 +9,8 @@ reference's (``decompress_tpu.lzo``, JAX on the CPU).
   held equal in ``tests/test_torch_pipeline.py``), and at level 6 on
   300,000 bytes of the corpus (three segments, history from the previous
   segment); each decodes back with both decoders;
+* LZO's analysis and ``de.match_commands_batch`` upload through
+  ``transfer.upload`` and read each batch through one Fetch;
 * the golden literal-only stream and the end-marker-only stream;
 * malformed input raises ``LzoError`` with the reference's message, from
   the native decoder and from the host state machine;
@@ -24,8 +26,10 @@ import numpy as np
 import pytest
 import torch
 
+from decompress_tpu import de as ref_de
 from decompress_tpu import lzo as ref
-from decompress_tpu_torch import lzo
+from decompress_tpu_torch import de, lzo
+from decompress_tpu_torch.ops import lz77, transfer
 from torch_threads import one_torch_thread  # noqa: F401
 
 import minilzo_oracle
@@ -65,6 +69,43 @@ def test_compress_matches_reference_patterns(level):
 def test_compress_matches_reference_across_segments():
     base = b"".join(p.read_bytes() for p in sorted(CORPUS.iterdir()))
     _same(base[:300_000], 6)
+
+
+def test_lzo_and_queue_engine_stage_through_transfer(monkeypatch):
+    """LZO's analysis and the queue engine's match finder stage their rows
+    with ``transfer.upload`` (rows, the first row's history where rows
+    chain, valid and history lengths) and read each batch's parse fields
+    through one Fetch; their bytes and commands are the reference's."""
+    uploads, fetches = [], []
+    upload, fetch = transfer.upload, transfer.Fetch
+
+    def counted(a, device, keep=None):
+        uploads.append(a.shape)
+        return upload(a, device, keep)
+
+    class Counted(fetch):
+        def __init__(self, tensors):
+            fetches.append(sorted(tensors))
+            super().__init__(tensors)
+
+    monkeypatch.setattr(transfer, "upload", counted)
+    monkeypatch.setattr(transfer, "Fetch", Counted)
+    fields = sorted(["on_path", "is_match", "length", "dist"])
+    base = b"".join(p.read_bytes() for p in sorted(CORPUS.iterdir()))
+    _same(base[:20_000], 6)
+    assert uploads == [(1, de.SEGMENT_SIZE), (lz77.HIST,), (1,), (1,)]
+    assert fetches.count(fields) == 1
+
+    uploads.clear()
+    fetches.clear()
+    chunks = [base[50000:54096], base[54096:58192], base[70000:71000]]
+    hists = [base[50000 - 10000:50000], base[54096 - 40000:54096], b""]
+    got = de.match_commands_batch(chunks, hists, 6, seg=4096, device="cpu")
+    for g, w in zip(got, ref_de.match_commands_batch(chunks, hists, 6, seg=4096),
+                    strict=True):
+        np.testing.assert_array_equal(g, w)
+    assert uploads[:3] == [(4, lz77.HIST + 4096), (4,), (4,)]
+    assert fetches.count(fields) == 1
 
 
 def test_golden_streams():

@@ -1,8 +1,8 @@
-"""The native block planner (``native/plan.cpp``) against the plain one.
+"""The native block planner (``native/plan.cpp``) against the reference's.
 
 ``de.plan_blocks`` plans a batch in one native call;
-``de._plan_blocks_plain`` is the Python planner (the reference's, copied),
-kept as its model.  The two must agree byte for byte: the kinds, and every
+``decompress_tpu.de.plan_blocks`` is the reference's Python planner, its
+model.  The two must agree byte for byte: the kinds, and every
 output array's dtype, shape and values, on rows with no symbols or one,
 on counts that push the literal and distance trees past 15 bits and the
 precode past 7, under every ``force_block`` and both forms of
@@ -18,6 +18,7 @@ import gzip
 import numpy as np
 import pytest
 
+from decompress_tpu import de as ref_de
 from decompress_tpu_torch import de, gz
 from decompress_tpu_torch.core import huffman, tables
 
@@ -153,14 +154,14 @@ def _shared(shared, hl, hd):
 @pytest.mark.parametrize("shared", [False, True, "tuple"])
 @pytest.mark.parametrize("force", [None, "fixed", "dynamic"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_native_plan_equals_plain(case, force, shared):
+def test_native_plan_equals_reference(case, force, shared):
     rng = np.random.default_rng(sorted(CASES).index(case))
     hl, hd, n_valid, finals, pad_to = CASES[case](rng)
     tree = _shared(shared, hl, hd)
     got = de.plan_blocks(hl, hd, n_valid, finals, pad_to=pad_to, force_block=force,
                          shared_tree=tree)
-    want = de._plan_blocks_plain(hl, hd, n_valid, finals, pad_to=pad_to,
-                                 force_block=force, shared_tree=tree)
+    want = ref_de.plan_blocks(hl, hd, n_valid, finals, pad_to=pad_to,
+                              force_block=force, shared_tree=tree)
     assert got[2] == want[2]
     assert len(got[2]) == len(hl)
     for g, w in zip((*got[0], *got[1]), (*want[0], *want[1])):
@@ -168,7 +169,7 @@ def test_native_plan_equals_plain(case, force, shared):
         np.testing.assert_array_equal(g, w)
 
 
-def test_whole_gzip_stream_equals_the_plain_planners(monkeypatch):
+def test_whole_gzip_stream_equals_the_reference_planner(monkeypatch):
     """Ten 4 KiB segments (two batches): text, random bytes and a short
     tail, so that the planner chooses more than one kind."""
     rng = np.random.default_rng(20)
@@ -182,9 +183,9 @@ def test_whole_gzip_stream_equals_the_plain_planners(monkeypatch):
     counts = de.PLAN_COUNTS - before
     assert sum(counts[k] > 0 for k in ("stored", "fixed", "dynamic")) >= 2, counts
     assert counts["stored"] + counts["fixed"] + counts["dynamic"] == 10
-    monkeypatch.setattr(de, "plan_blocks", de._plan_blocks_plain)
-    plain = gz.compress(x, 6, segment_size=4096, device="cpu")
-    assert native == plain
+    monkeypatch.setattr(de, "plan_blocks", ref_de.plan_blocks)
+    reference = gz.compress(x, 6, segment_size=4096, device="cpu")
+    assert native == reference
     assert gzip.decompress(native) == x
 
 
@@ -196,8 +197,8 @@ def test_plan_counts_count_kinds_and_overflow(shared):
     hl, hd = np.concatenate([hl, hl2[:3]]), np.concatenate([hd, hd2[:3]])
     n_valid, finals = np.concatenate([n_valid, nv2[:3]]), np.concatenate([finals, fin2[:3]])
     tree = _shared(shared, hl, hd)
-    want = de._plan_blocks_plain(hl, hd, n_valid, finals, force_block=None,
-                                 shared_tree=tree)[2]
+    want = ref_de.plan_blocks(hl, hd, n_valid, finals, force_block=None,
+                              shared_tree=tree)[2]
     if shared is True:
         sums = _planned(hl.sum(0), hd.sum(0))[0], hd.astype(np.int64).sum(0)
         sums[0][de.EOB] += len(hl) - 1

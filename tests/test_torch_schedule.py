@@ -12,13 +12,14 @@ sharded writer's windowed chunks against the reference's, on the CPU.
   top-level ``lz77_analyze`` / ``analyze2_finish`` (calls nested inside
   a finish do not count), each batch named by its data;
 * (c) ``_compress_members`` dispatches round A of chunk i (A), drains
-  chunk i-1's packs (D), finishes chunk i (F) and dispatches its packs
-  (P) in the reference's ``_windowed`` order, on one device and on a mesh
-  of two, with the reference's archive bytes;
+  chunk i-1's packs (D, ``de.drain``), finishes chunk i (F) and
+  dispatches its packs (P) in the reference's ``_windowed`` order, on one
+  device and on a mesh of two, with the reference's archive bytes;
 * (d) ``PIPELINE_DEPTH`` equals the reference's (also held in
   ``tests/test_torch_core.py``), and depth 1 writes the same bytes;
 * ``ops/transfer.read`` uses a result's queued copy only for the tensors
-  that copy holds.
+  that copy holds;
+* ``de.batch_rows`` stages the same rows on every layout it picks.
 
 Nothing in the reference is edited: its functions are wrapped by
 ``monkeypatch`` for the length of a run.
@@ -177,6 +178,42 @@ def test_read_takes_the_queued_copy_of_its_own_tensors_only():
     assert plain.tolist() == [True]
 
 
+#: (chunk starts, history starts or None for the chunk's own HIST bytes
+#: before it, segment size) of batch_rows' layouts
+ROW_CASES = {
+    "previous-row": ([40000 + 32768 * i for i in range(5)], None, 32768),
+    "previous-row-short-tail": ([40000, 72768, 105536], None, 32768),
+    "unrelated-history": ([40000, 72768, 200000], [0, 7232, 90000], 32768),
+    "own-history": ([40000 + 4096 * i for i in range(3)], None, 4096),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROW_CASES))
+def test_batch_rows_layouts_stage_the_same_rows(case):
+    """Whatever layout de.batch_rows picks (payload rows whose histories
+    the card takes from the row before, or rows carrying their own), the
+    staged rows are each chunk behind its own history."""
+    starts, hist_starts, seg = ROW_CASES[case]
+    raw = np.frombuffer(CORPUS, np.uint8)
+    stops = [s + seg for s in starts]
+    if case.endswith("short-tail"):
+        stops[-1] -= 1000
+    chunks = [raw[a:b] for a, b in zip(starts, stops)]
+    hists = [raw[max(0, s - lz77.HIST):s] if hist_starts is None else
+             raw[h:h + lz77.HIST] for s, h in zip(starts, hist_starts or starts)]
+    rows = de.batch_rows(chunks, hists, seg)
+    assert (rows.head is not None) == case.startswith("previous-row")
+    batch = de.Batch(rows, torch.device("cpu"))
+    want = np.zeros((len(rows.n_valid), lz77.HIST + seg), np.uint8)
+    for i, (c, h) in enumerate(zip(chunks, hists)):
+        want[i, lz77.HIST - h.size:lz77.HIST] = h
+        want[i, lz77.HIST:lz77.HIST + c.size] = c
+    b = len(chunks)
+    np.testing.assert_array_equal(batch.data[:b].numpy(), want[:b])
+    assert batch.n_valid[:b].tolist() == [c.size for c in chunks]
+    assert batch.hist_len[:b].tolist() == [h.size for h in hists]
+
+
 def test_pipeline_depth_matches_reference():
     assert de.PIPELINE_DEPTH == ref_de.PIPELINE_DEPTH == 4
 
@@ -239,7 +276,7 @@ def test_windowed_chunks_match_reference(n_devices, monkeypatch):
                                                                key=False))
     monkeypatch.setattr(lz77, "analyze2_finish", order.finish(lz77.analyze2_finish, "F"))
     monkeypatch.setattr(de, "pack_segments", order.dispatch(de.pack_segments, "P", key=False))
-    monkeypatch.setattr(sharded, "_drain", order.dispatch(sharded._drain, "D", key=False))
+    monkeypatch.setattr(de, "drain", order.dispatch(de.drain, "D", key=False))
     got = sharded.sharded_gzip_compress(
         data, 6, member_size=MEMBER, mesh=parallel.make_mesh(n_devices, device="cpu"))
 
@@ -273,7 +310,7 @@ def test_shared_tree_drains_after_every_analysis(monkeypatch):
                                                                key=False))
     monkeypatch.setattr(lz77, "analyze2_finish", order.finish(lz77.analyze2_finish, "F"))
     monkeypatch.setattr(de, "pack_segments", order.dispatch(de.pack_segments, "P", key=False))
-    monkeypatch.setattr(sharded, "_drain", order.dispatch(sharded._drain, "D", key=False))
+    monkeypatch.setattr(de, "drain", order.dispatch(de.drain, "D", key=False))
     got = sharded.sharded_gzip_compress(data, 6, member_size=MEMBER, shared_tree=True,
                                         device="cpu")
     assert got == ref_sharded.sharded_gzip_compress(data, 6, member_size=MEMBER,

@@ -130,10 +130,12 @@ def test_empty_and_unindexed_match_reference():
 
 
 def _member_batch():
-    data, n_valid = sharded._batched_members(np.frombuffer(PAYLOAD, np.uint8), MEMBER, 0)
-    assert np.array_equal(data, ref._batched_members(
-        np.frombuffer(PAYLOAD, np.uint8), MEMBER, 0)[0])
-    return data[:4], n_valid[:4]
+    arr = np.frombuffer(PAYLOAD, np.uint8)
+    m = -(-arr.size // MEMBER)
+    rows = de.batch_rows([arr[i * MEMBER:(i + 1) * MEMBER] for i in range(m)], None, MEMBER,
+                         rows=m)
+    assert np.array_equal(rows.data, ref._batched_members(arr, MEMBER, 0)[0])
+    return rows.data[:4], rows.n_valid[:4]
 
 
 def test_hist0_analysis_matches_reference():
@@ -677,9 +679,10 @@ def test_sharded_zlib_empty_and_member_options_match_reference():
     assert zlib.decompress(sharded.sharded_zlib_compress(b"", 1, device="cpu")) == b""
     arr = np.frombuffer(ZLIB_PAYLOAD, np.uint8)
     flags = np.array([False, True, False, True])
-    parts, n_valid, crcs = sharded._compress_members(arr, 4, 16384, (torch.device("cpu"),),
-                                                     final_flags=flags, want_crc=False)
-    assert crcs is None and n_valid.tolist() == [16384, 16384, 16384, 5000]
-    assert [p[0] for p in parts] == ["packed", "stored", "packed", "packed"]
+    parts, n_valid = sharded._compress_members(arr, 4, 16384, (torch.device("cpu"),),
+                                               final_flags=flags, want_crc=False)
+    assert all(p.crc is None for p in parts)
+    assert n_valid.tolist() == [16384, 16384, 16384, 5000]
+    assert [p.kind for p in parts] == ["packed", "stored", "packed", "packed"]
     # BFINAL of each packed member follows its flag
-    assert [int(p[1][0]) & 1 for p in parts if p[0] == "packed"] == [0, 0, 1]
+    assert [int(p.data[0]) & 1 for p in parts if p.kind == "packed"] == [0, 0, 1]

@@ -6,8 +6,8 @@ loops and ``lz.compress_into`` on the match finder, with ``device="cpu"``
 (the plain PyTorch versions of the kernels), against ``decompress_tpu``
 (JAX on the CPU, its framing checksums pinned to zlib's by
 ``tests/ref_host.py``): the same bytes, and for the match finder
-(``de.match_commands``, ``match_commands_batch``, ``lz77.analyze2``) the
-same arrays.  The reference pads every device call to MAX_DEVICE_BATCH
+(``de.match_commands``, ``match_commands_batch``, and a ``de.Batch``'s
+round A and finish, as the encoders run them) the same arrays.  The reference pads every device call to MAX_DEVICE_BATCH
 rows; the port pads to the power of two above its rows (one row for a
 streaming segment), which these equalities license.  A streamed segment
 sees the previous 32 KiB, so ``streaming.Deflate`` also equals the port's
@@ -31,7 +31,6 @@ from decompress_tpu import streaming as ref_streaming
 from decompress_tpu import zl as ref_zl
 from decompress_tpu.ops import lz77 as ref_lz77
 from decompress_tpu_torch import de, gz, lz, streaming, zl
-from decompress_tpu_torch.ops import lz77
 from ref_host import ref_host  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -115,11 +114,11 @@ def test_match_commands_batch_matches_reference():
 @pytest.mark.parametrize("level", [1, 4, 6])
 def test_analyze2_matches_reference(level):
     raw = np.frombuffer(_read("paper1"), np.uint8)
-    data, n_valid, hist_len, _ = de._build_batch(raw[: 2 * 4096 - 700], 0, 2, 4096)
+    rows = de.batch_rows(*de._segments(raw[: 2 * 4096 - 700], 0, 2, 4096), 4096)
+    data, n_valid, hist_len = rows.data, rows.n_valid, rows.hist_len
     want = ref_lz77.analyze2(jnp.asarray(data), jnp.asarray(n_valid),
                              jnp.asarray(hist_len), level=level, seg_len=4096)
-    got = lz77.analyze2(torch.from_numpy(data), torch.from_numpy(n_valid),
-                        torch.from_numpy(hist_len), level=level, seg_len=4096)
+    got = de.Batch(rows, torch.device("cpu")).start(level).finish().res
     assert sorted(got) == sorted(want)
     for k in want:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
