@@ -668,14 +668,15 @@ class Part(typing.NamedTuple):
     """One member of a drained batch: ``kind`` "stored" with its bytes in
     ``data``, or "packed" with ``bits`` packed bits in ``data`` (BFINAL
     included); packed with split points, ``splits`` holds the (bit,
-    command, output) triples and ``ncmds`` the commands with the EOB; and
-    ``crc`` the member's CRC-32 where the pack computed it."""
+    command, output) triples, an int64 [n_splits - 1, 3] array, and
+    ``ncmds`` the commands with the EOB; and ``crc`` the member's CRC-32
+    where the pack computed it."""
 
     kind: str
     data: np.ndarray
     bits: int
     final: bool
-    splits: list | None = None
+    splits: np.ndarray | None = None
     ncmds: int = 0
     crc: int | None = None
 
@@ -764,8 +765,7 @@ def drain(batches) -> list[Part]:
         crcs = batch.fetch.wait("crcs")[0][:b].tolist() if batch.crc else [None] * b
         splits, ncmds = [None] * b, [0] * b
         if batch.n_splits > 1:
-            splits = [list(zip(*(got[k][i].tolist() for k in _SPLIT_KEYS[:3])))
-                      for i in range(b)]
+            splits = np.stack([got[k] for k in _SPLIT_KEYS[:3]], -1).astype(np.int64)
             ncmds = got["sp_n"].tolist()
         totals = got["totals"].tolist()
         used = [totals[i] for i in range(b) if kinds[i] != "stored"]

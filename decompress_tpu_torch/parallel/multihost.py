@@ -15,7 +15,8 @@ The exchange is traced by its parts (``utils.profiling``): the sizes'
 all-gather, the first collective of a call, is ``processes.wait`` (it
 moves 8 bytes, so its time is this process's wait for the slowest); the
 pieces' and the metadata's all-gathers are ``processes.gather``; the
-index rebuilt from every process's metadata is ``processes.index``.
+index rebuilt from every process's metadata (one int64 array from the
+gather to the index bytes) is ``processes.index``.
 :data:`COUNTS` counts the collectives and the bytes each way.  The steps
 are module functions called through their module names, so that a
 wrapper set on the module sees every call.
@@ -157,10 +158,11 @@ def _exchange(total: int, nproc: int, local_arch: bytes, local_sizes: list,
     per = -(-total // nproc)
     width = 2 + 3 * (sharded.N_SPLITS - 1)
     meta = np.zeros((per, width), np.int64)
-    for j, s in enumerate(local_sizes):
-        meta[j, 0] = s
-        meta[j, 1] = local_ncmds[j]
-        meta[j, 2:] = [v for tri in local_splits[j] for v in tri]
+    n = len(local_sizes)
+    if n:
+        meta[:n, 0] = local_sizes
+        meta[:n, 1] = local_ncmds
+        meta[:n, 2:] = np.asarray(local_splits, np.int64).reshape(n, -1)
     return _assemble_index(archive, total, _all_gather(meta))  # [P, per, width]
 
 
@@ -170,18 +172,12 @@ def _assemble_index(archive: bytes, total: int, all_meta: np.ndarray) -> bytes:
     from every process's metadata rows (``all_meta``: [P, per, width], by
     process index, each process's members in its first rows)."""
     nproc, per = all_meta.shape[:2]
-    sizes, split_rows, ncmds = [], [], []
-    for p in range(nproc):
-        plo = min(p * per, total)
-        phi = min(plo + per, total)
-        for j in range(phi - plo):
-            sizes.append(int(all_meta[p, j, 0]))
-            ncmds.append(int(all_meta[p, j, 1]))
-            row = all_meta[p, j, 2:].reshape(-1, 3)
-            split_rows.append([tuple(int(v) for v in t) for t in row])
-    xt = sharded._build_index(total, sizes, split_rows, ncmds)
+    rows = np.concatenate([all_meta[p, : max(0, min(per, total - p * per))]
+                           for p in range(nproc)])  # [total, width], member order
+    xt = sharded._build_index(total, rows[:, 0], rows[:, 2:].reshape(total, -1, 3),
+                              rows[:, 1])
     if xt is not None:
         head0 = bytearray(archive[:10])
         head0[3] |= _FEXTRA
-        archive = bytes(head0) + xt + archive[10:]
+        archive = b"".join((head0, xt, memoryview(archive)[10:]))  # one copy
     return archive

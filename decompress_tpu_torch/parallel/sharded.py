@@ -103,6 +103,10 @@ serial_fallbacks: collections.Counter = collections.Counter()
 #: archives whose rejected members were decoded again as whole-member
 #: rows on the card, by the first reject's reason
 card_retries: collections.Counter = collections.Counter()
+#: indexes written by subfield (``tb``, ``ts``, ``sizes_only``, and
+#: ``none`` where the archive has too many members for one) and the
+#: members of those archives (``members``)
+INDEX_COUNTS: collections.Counter = collections.Counter()
 
 
 def make_mesh(n_devices: int | None = None, device="cuda") -> tuple:
@@ -216,32 +220,6 @@ def _compress_members(arr, level, member_size, mesh, final_flags=None,
     return parts, n_valid
 
 
-def _encode_tb(split_rows: list, ncmds: list, stride: int) -> bytes | None:
-    """Compact TB payload, or None when any split point doesn't fit the
-    delta encoding (e.g. command-stride archives)."""
-    out = [int(stride).to_bytes(4, "little")]
-    for row, total in zip(split_rows, ncmds):
-        valid = [t for t in row if t[0] > 0]
-        deltas = []
-        maxc = 0
-        prev_ci = 0
-        for j, (bo, ci, _oo) in enumerate(valid, start=1):
-            d = j * stride - bo
-            if not 0 <= d <= 255:
-                return None
-            deltas.append(d)
-            maxc = max(maxc, ci - prev_ci)
-            prev_ci = ci
-        if valid and total:
-            maxc = max(maxc, int(total) - prev_ci)
-        elif not valid:
-            maxc = min(int(total), TB_CMDS_CAP) if total else 0
-        out.append(len(deltas).to_bytes(2, "little")
-                   + min(maxc, TB_CMDS_CAP).to_bytes(2, "little")
-                   + bytes(deltas))
-    return b"".join(out)
-
-
 def sharded_gzip_compress(data, level: int = 6, *, member_size: int = de.SEGMENT_SIZE,
                           mesh=None, mtime: int = 0, os: gz.OS | int = gz.OS.default(),
                           index: bool = True, return_meta: bool = False,
@@ -293,8 +271,10 @@ def _assemble(parts, n_valid, level, mtime, os, index, return_meta):
         bodies.append(w.getvalue())
 
     sizes = [len(head) + len(b) + 8 for b in bodies]
-    split_rows = [[(0, 0, 0)] * (N_SPLITS - 1) if part.splits is None else part.splits
-                  for part in parts]
+    split_rows = np.zeros((m, N_SPLITS - 1, 3), np.int64)  # all-zero for stored members
+    for i, part in enumerate(parts):
+        if part.splits is not None:
+            split_rows[i] = part.splits
     ncmds = [part.ncmds for part in parts]
     xt = _build_index(m, sizes, split_rows, ncmds) if index else None
     if xt is not None:
@@ -311,7 +291,8 @@ def _assemble(parts, n_valid, level, mtime, os, index, return_meta):
         out.append(int(int(n_valid[i]) & 0xFFFFFFFF).to_bytes(4, "little"))
     archive = b"".join(out)
     if return_meta:
-        return archive, sizes, split_rows, ncmds
+        triples = [list(zip(*r)) for r in split_rows.transpose(0, 2, 1).tolist()]
+        return archive, sizes, triples, ncmds
     return archive
 
 
@@ -342,39 +323,77 @@ def sharded_zlib_compress(data, level: int = 6, *, member_size: int = de.SEGMENT
     return w.getvalue() + adler.to_bytes(4, "big")
 
 
-def _build_index(m: int, sizes: list, split_rows: list,
-                 ncmds: list | None = None) -> bytes | None:
+def _encode_tb(splits: np.ndarray, ncmds: np.ndarray, stride: int) -> bytes | None:
+    """Compact TB payload of the [m, N_SPLITS - 1, 3] int64 ``splits``, or
+    None when any split point doesn't fit the delta encoding (e.g.
+    command-stride archives)."""
+    m = len(splits)
+    bits, cis = splits[..., 0], splits[..., 1]
+    valid = bits > 0
+    rank = np.cumsum(valid, axis=1)  # a valid triple's 1-based rank in its row
+    owner = np.nonzero(valid)[0]  # member of each valid triple, in order
+    rank_v = rank[valid]
+    deltas = rank_v * stride - bits[valid]
+    if deltas.size and (deltas.min() < 0 or deltas.max() > 255):
+        return None
+    count = rank[:, -1]
+    start = np.cumsum(count) - count  # each row's first valid triple
+    has = count > 0
+    first = start[has]
+    ci = cis[valid]
+    step = np.diff(ci, prepend=0)
+    step[first] = ci[first]  # a row's first step is from 0
+    maxc = ncmds.copy()  # a row with no valid triple: its command count
+    if first.size:
+        top = np.maximum(np.maximum.reduceat(step, first), 0)
+        final = ncmds[has] - ci[first + count[has] - 1]
+        maxc[has] = np.where(ncmds[has] != 0, np.maximum(top, final), top)
+    maxc = np.minimum(maxc, TB_CMDS_CAP)
+    # per member: u16 count, u16 max commands a row, count u8 deltas
+    rec = 4 + 4 * np.arange(m) + start
+    out = np.empty(4 + 4 * m + int(count.sum()), np.uint8)
+    out[:4] = np.frombuffer(int(stride).to_bytes(4, "little"), np.uint8)
+    for k, v in enumerate((count, count >> 8, maxc, maxc >> 8)):
+        out[rec + k] = v & 0xFF
+    out[rec[owner] + 3 + rank_v] = deltas
+    return out.tobytes()
+
+
+def _build_index(m: int, sizes, split_rows, ncmds=None) -> bytes | None:
     """FEXTRA bytes (XLEN + subfields) for the member index, or None.
 
     ``sizes`` are per-member byte sizes excluding the index field itself
     (the first member's recorded size grows by the field's length);
     ``split_rows`` holds N_SPLITS - 1 (bit, cmd, out) triples per member
-    (all-zero for stored members).  With bit-stride splits and ``ncmds``
-    the splits go into the compact TB subfield: u32 stride, then per
-    member a u16 count, a u16 maximum of commands per row and count u8
-    deltas; otherwise into the legacy TS subfield of 12-byte triples.
+    (all-zero for stored members).  Each is a list or an int64 array
+    ([m], [m, N_SPLITS - 1, 3], [m]).  With bit-stride splits and
+    ``ncmds`` the splits go into the compact TB subfield: u32 stride, then
+    per member a u16 count, a u16 maximum of commands per row and count
+    u8 deltas; otherwise into the legacy TS subfield of 12-byte triples.
+    Counts each call in :data:`INDEX_COUNTS`.
     """
     if m > (65531 - 8) // 4:
+        INDEX_COUNTS.update(none=1, members=m)
         return None
+    splits = np.asarray(split_rows, np.int64).reshape(m, -1, 3)
     tb = None
     if SPLIT_BITS > 0 and ncmds is not None:
-        tb = _encode_tb(split_rows, ncmds, SPLIT_BITS)
+        tb = _encode_tb(splits, np.asarray(ncmds, np.int64), SPLIT_BITS)
     xdata_len = 4 + 4 * m
     extra_len = 2 + 4 + xdata_len
     sfield = b""
     if tb is not None and 4 + xdata_len + 4 + len(tb) <= 65535:
         sfield = TBITS_ID + len(tb).to_bytes(2, "little") + tb
         extra_len += len(sfield)
-        use_splits = False
+        kind = "tb"
     else:
         # legacy 12-byte triples, one global subfield
-        split_len = 1 + sum(
-            1 + 12 * sum(1 for t in row if t[0] > 0) for row in split_rows)
-        use_splits = 4 + (4 + 4 * m) + (4 + split_len) <= 65535
-    if use_splits:
+        split_len = 1 + m + 12 * int((splits[..., 0] > 0).sum())
+        kind = "ts" if 4 + (4 + 4 * m) + (4 + split_len) <= 65535 else "sizes_only"
+    if kind == "ts":
         # count-prefixed valid triples per member (bit offset 0 = unused)
         parts_enc = []
-        for row in split_rows:
+        for row in splits.tolist():
             valid = [t for t in row if t[0] > 0]
             parts_enc.append(bytes([len(valid)]) + b"".join(
                 bo.to_bytes(4, "little") + ci.to_bytes(4, "little")
@@ -382,11 +401,13 @@ def _build_index(m: int, sizes: list, split_rows: list,
         sdata = bytes([N_SPLITS]) + b"".join(parts_enc)
         sfield = SPLIT_ID + len(sdata).to_bytes(2, "little") + sdata
         extra_len += len(sfield)
-    sizes = list(sizes)
+    INDEX_COUNTS.update({kind: 1, "members": m})
+    sizes = np.array(sizes, np.int64)
     sizes[0] += extra_len  # first member grows by the FEXTRA
+    if sizes.min() < 0 or sizes.max() > 0xFFFFFFFF:
+        raise OverflowError("a member size outside the index's u32 field")
     xfield = INDEX_ID + xdata_len.to_bytes(2, "little") \
-        + m.to_bytes(4, "little") \
-        + b"".join(s.to_bytes(4, "little") for s in sizes) + sfield
+        + m.to_bytes(4, "little") + sizes.astype("<u4").tobytes() + sfield
     return len(xfield).to_bytes(2, "little") + xfield
 
 

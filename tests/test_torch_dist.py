@@ -16,6 +16,14 @@ versions of the kernels, ``device="cpu"`` meshes) against the reference
   ``total_bits``, shapes and dtypes;
 * the multi-process index assembly from ``return_meta`` rebuilds the
   single-process archive;
+* the index encoder ``_build_index`` (int64 arrays, lists of tuples)
+  writes the reference's bytes on drawn split tables: TB, deltas out of
+  range and ``SPLIT_BITS`` 0 (TS), rows with no valid triple or with
+  zeros between them, command steps and counts at and over the TB cap,
+  TS at and over its 64 KiB limit (sizes only), too many members (none);
+  ``_assemble_index`` over a four-process gather of 515 members (the
+  last process short, junk in its padding row) joins that index, and
+  ``sharded.INDEX_COUNTS`` counts each index by subfield;
 * ``CodecConfig``: fields, defaults and ``validate()`` messages as the
   reference's (``platform`` is ``device``), and the ``config=`` wiring of
   ``de.deflate`` and ``sharded_gzip_compress`` writes the reference's
@@ -265,6 +273,155 @@ def test_multihost_index_assembly_matches_single_host():
     assert sharded.sharded_gzip_decompress(rebuilt, device="cpu") == data
     empty = sharded.sharded_gzip_compress(b"", return_meta=True, device="cpu")
     assert empty == ref.sharded_gzip_compress(b"", return_meta=True)
+
+
+STRIDE = ref.SPLIT_BITS
+CAP = 65535  # the TB field's u16 commands a row saturate here
+
+
+def _split_table(rng, m, counts, *, interleave=False, steps=(1, 3000)):
+    """(sizes, [m, N_SPLITS - 1, 3] int64 splits, ncmds) with ``counts[i]``
+    valid TB triples in member i (deltas 0..255 off the stride, commands
+    rising by ``steps``), first in the row or at drawn slots."""
+    s = ref.N_SPLITS - 1
+    splits = np.zeros((m, s, 3), np.int64)
+    ncmds = np.zeros(m, np.int64)
+    for i, k in enumerate(counts):
+        slots = np.sort(rng.choice(s, k, replace=False)) if interleave else np.arange(k)
+        j = np.arange(1, k + 1)
+        splits[i, slots, 0] = j * STRIDE - rng.integers(0, 256, k)
+        splits[i, slots, 1] = np.cumsum(rng.integers(*steps, k))
+        splits[i, slots, 2] = np.cumsum(rng.integers(1, 9000, k))
+        ncmds[i] = (splits[i, slots[-1], 1] if k else 0) + rng.integers(0, 3000)
+    sizes = rng.integers(20, 140_000, m)
+    return sizes, splits, ncmds
+
+
+def _index_case(name, rng, monkeypatch):
+    """(m, sizes, splits, ncmds) of one drawn case of the index encoder."""
+    if name == "tb":
+        return 40, *_split_table(rng, 40, rng.integers(1, 250, 40))
+    if name == "delta_out_of_range":
+        sizes, splits, ncmds = _split_table(rng, 20, rng.integers(1, 60, 20))
+        splits[7, 3, 0] = 4 * STRIDE - 256  # delta 256: no TB, the TS subfield
+        return 20, sizes, splits, ncmds
+    if name == "negative_delta":
+        sizes, splits, ncmds = _split_table(rng, 20, rng.integers(1, 60, 20))
+        splits[3, 0, 0] = STRIDE + 1
+        return 20, sizes, splits, ncmds
+    if name == "split_bits_0":
+        for mod in (ref, sharded):
+            monkeypatch.setattr(mod, "SPLIT_BITS", 0)
+        return 25, *_split_table(rng, 25, rng.integers(0, 40, 25))
+    if name == "ncmds_none":
+        sizes, splits, _ = _split_table(rng, 12, rng.integers(0, 40, 12))
+        return 12, sizes, splits, None
+    if name == "empty_members":
+        counts = rng.integers(1, 50, 30)
+        counts[[0, 4, 5, 17, 29]] = 0
+        sizes, splits, ncmds = _split_table(rng, 30, counts)
+        ncmds[[0, 5]] = 0
+        ncmds[4], ncmds[17], ncmds[29] = 1234, CAP, CAP + 77
+        return 30, sizes, splits, ncmds
+    if name == "interleaved_zeros":
+        return 30, *_split_table(rng, 30, rng.integers(0, 120, 30), interleave=True)
+    if name == "cmds_cap":
+        sizes, splits, ncmds = _split_table(rng, 9, [3, 3, 3, 3, 0, 0, 2, 2, 2])
+        splits[0, 1, 1] = splits[0, 0, 1] + CAP  # a step at the cap
+        splits[1, 1, 1] = splits[1, 0, 1] + CAP + 1  # and over it
+        splits[1, 2, 1] = splits[1, 1, 1] + 5
+        splits[2, 0, 1] = CAP + 9  # the first step, from 0
+        splits[2, 1:3, 1] = [CAP + 10, CAP + 11]
+        ncmds[3] = splits[3, 2, 1] + CAP  # the final step at the cap
+        ncmds[4], ncmds[5] = CAP, CAP + 1
+        ncmds[6] = splits[6, 1, 1] + CAP + 2  # the final step over it
+        ncmds[7] = splits[7, 1, 1] - 5  # a final step below 0 moves nothing
+        splits[7, 1, 1] = splits[7, 0, 1] - 3  # nor a falling one
+        splits[8, :2, 1], ncmds[8] = [-5, -9], 0  # every step falls: 0
+        return 9, sizes, splits, ncmds
+    if name in ("ts_at_limit", "ts_over_limit"):
+        # 5 * 34 + 12 * 5446 + 13 = 65535: the TS subfield just fits
+        counts = np.full(34, 5446 // 34)
+        counts[: 5446 - counts.sum() + (name == "ts_over_limit")] += 1
+        sizes, splits, ncmds = _split_table(rng, 34, counts)
+        splits[0, 0, 0] = STRIDE - 300  # no TB
+        return 34, sizes, splits, ncmds
+    if name == "tb_too_long":  # nor does TS fit: sizes only
+        return 300, *_split_table(rng, 300, np.full(300, 249))
+    assert name == "too_many_members"  # no index at all
+    m = (65531 - 8) // 4 + 1
+    return m, [100] * m, [[(0, 0, 0)] * (ref.N_SPLITS - 1)] * m, [0] * m
+
+
+@pytest.mark.parametrize("name", [
+    "tb", "delta_out_of_range", "negative_delta", "split_bits_0", "ncmds_none",
+    "empty_members", "interleaved_zeros", "cmds_cap", "ts_at_limit", "ts_over_limit",
+    "tb_too_long", "too_many_members"])
+def test_build_index_matches_reference(monkeypatch, name):
+    """The array encoder writes the reference's index bytes (or its None),
+    from lists of tuples and from int64 arrays alike."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    m, sizes, splits, ncmds = _index_case(name, rng, monkeypatch)
+    monkeypatch.setattr(sharded, "INDEX_COUNTS", type(sharded.INDEX_COUNTS)())
+    if isinstance(splits, np.ndarray):
+        lists = (sizes.tolist(), [list(map(tuple, r)) for r in splits.tolist()],
+                 None if ncmds is None else ncmds.tolist())
+    else:
+        lists = (sizes, splits, ncmds)
+    want = ref._build_index(m, *lists)
+    assert sharded._build_index(m, *lists) == want
+    if isinstance(splits, np.ndarray):
+        assert sharded._build_index(m, sizes, splits, ncmds) == want
+    kind = {"tb": "tb", "empty_members": "tb", "interleaved_zeros": "tb", "cmds_cap": "tb",
+            "tb_too_long": "sizes_only", "ts_over_limit": "sizes_only",
+            "too_many_members": "none"}.get(name, "ts")
+    calls = 1 + isinstance(splits, np.ndarray)
+    assert sharded.INDEX_COUNTS == {kind: calls, "members": calls * m}
+
+
+def _gathered(rng, total=515, nproc=4):
+    """A [nproc, per, width] gather of ``total`` members' rows, the last
+    process short, its padding rows junk, and the rows in member order."""
+    per = -(-total // nproc)
+    sizes, splits, ncmds = _split_table(rng, total, rng.integers(0, 60, total))
+    rows = np.concatenate([sizes[:, None], ncmds[:, None], splits.reshape(total, -1)], 1)
+    all_meta = rng.integers(1, 1 << 20, (nproc * per, rows.shape[1]))
+    all_meta[:total] = rows
+    return all_meta.reshape(nproc, per, -1), sizes, splits, ncmds
+
+
+def test_assemble_index_matches_single_process_writer():
+    """515 = 3 * 129 + 128 members gathered from four processes: the
+    index ``_assemble_index`` joins is ``_build_index``'s over the same
+    rows in member order, and the reference's."""
+    rng = np.random.default_rng(515)
+    all_meta, sizes, splits, ncmds = _gathered(rng)
+    assert all_meta.shape == (4, 129, 2 + 3 * (sharded.N_SPLITS - 1))
+    archive = b"\x1f\x8b\x08\x00\x00\x00\x00\x00\x00\x03" + rng.bytes(5000)
+    got = multihost._assemble_index(archive, 515, all_meta)
+    lists = (sizes.tolist(), [list(map(tuple, r)) for r in splits.tolist()], ncmds.tolist())
+    for xt in (sharded._build_index(515, *lists), ref._build_index(515, *lists)):
+        head0 = bytearray(archive[:10])
+        head0[3] |= gz._FEXTRA
+        assert got == bytes(head0) + xt + archive[10:]
+
+
+def test_index_counts(monkeypatch):
+    """``INDEX_COUNTS``: a TB, a TS and an unindexed archive add one to
+    their subfield's key, ``members`` their members."""
+    data = (b"index counts, by subfield " * 2000)[:20000]
+    monkeypatch.setattr(sharded, "INDEX_COUNTS", type(sharded.INDEX_COUNTS)())
+    tb = sharded.sharded_gzip_compress(data, 6, member_size=8192, device="cpu")
+    assert dict(sharded.INDEX_COUNTS) == {"tb": 1, "members": 3}
+    monkeypatch.setattr(sharded, "SPLIT_BITS", 0)
+    ts = sharded.sharded_gzip_compress(data, 6, member_size=8192, device="cpu")
+    assert dict(sharded.INDEX_COUNTS) == {"tb": 1, "ts": 1, "members": 6}
+    m = (65531 - 8) // 4 + 1
+    assert sharded._build_index(m, [1] * m, [[]] * m, [0] * m) is None
+    assert dict(sharded.INDEX_COUNTS) == {"tb": 1, "ts": 1, "none": 1, "members": 6 + m}
+    monkeypatch.setattr(sharded, "SPLIT_BITS", ref.SPLIT_BITS)
+    assert sharded.sharded_gzip_decompress(tb, device="cpu") == data
+    assert sharded.sharded_gzip_decompress(ts, device="cpu") == data
 
 
 def test_codec_config_matches_reference():
