@@ -234,6 +234,12 @@ def compress_bound(n: int, segment_size: int | None = None) -> int:
 PLAN_COUNTS: collections.Counter = collections.Counter()
 _KIND_NAMES = np.array(["stored", "fixed", "dynamic"])
 
+#: what each staged :class:`Batch` puts on the card, summed: ``batches``;
+#: ``rows`` (padding included) and ``valid_rows``; ``payload_bytes``, the
+#: valid rows' payload; ``row_bytes``, the rows' segment width each,
+#: history excluded.  Always on.
+BATCH_COUNTS: collections.Counter = collections.Counter()
+
 
 @profiling.spanned("plan.blocks", cpu=True)
 def plan_blocks(hist_lit, hist_dist, n_valid, final_flags, *, pad_to=None,
@@ -697,6 +703,9 @@ class Batch:
     def __init__(self, rows: Rows, dev: torch.device, first: int = 0):
         self.rows, self.first = rows, first
         self.seg = rows.data.shape[1] - rows.off
+        BATCH_COUNTS.update(batches=1, rows=len(rows.n_valid), valid_rows=rows.b,
+                            payload_bytes=int(rows.n_valid[:rows.b].sum()),
+                            row_bytes=len(rows.n_valid) * self.seg)
         self.keep: list = []
         self.data = transfer.upload(rows.data, dev, self.keep)
         if rows.head is not None:  # row i's history is row i-1's payload tail
